@@ -1,0 +1,552 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root; needs one CUDA card
+
+Phases (any failure exits non-zero before the result line):
+
+1. the card's name and power limit; build both CUDA kernels with nvcc;
+2. each kernel against its plain PyTorch version on the card: small edge
+   cases, a 4,096-row slice of the HepPh ELL table, and the main path's full
+   shape, with timings (kernel, plain version, byte bound, library call);
+3. the main path at real size: 16 top-k queries on the HepPh stand-in
+   (``paper_dataset("hepph", 1.0)``) submitted to ``SimRankSession`` and
+   drained in batches of 8, then one ``single_source(variant="tree")`` on
+   the ELL table — with the launch counters read around that window; then
+   serial and kernel-off runs under the same seeds must agree;
+4. accuracy: node a of the paper's toy graph at c = 0.25 within the
+   Thm-1/2 bound of the paper's Table 2.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FLOP/s
+# outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+FP32_RTOL = 1e-5  # kernel vs plain in fp32: only the summation order differs
+BF16_RTOL = 1e-3  # bf16 storage: ... or one bf16 step, see bf16_close
+SLICE_ROWS = 4096
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, what) -> None:
+    """A check of the run (kept under ``python -O``, unlike ``assert``)."""
+    if not cond:
+        raise SmokeFailure(str(what))
+
+
+def fp32_err(out, ref) -> float:
+    """max |out - ref|, required <= FP32_RTOL * max(1, max |ref|)."""
+    err = float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
+    scale = max(1.0, float(ref.float().abs().max()) if ref.numel() else 0.0)
+    require(err <= FP32_RTOL * scale, f"fp32 mismatch {err} (scale {scale})")
+    return err
+
+
+def bf16_close(out, ref) -> float:
+    """bf16 outputs: each element within BF16_RTOL * max(1, max|ref|) or one
+    bf16 step of ref (kernel and plain version round differently ordered fp32
+    sums to bf16).  Returns max |out - ref|."""
+    import torch
+
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    scale = max(1.0, float(r.abs().max()) if r.numel() else 0.0)
+    step = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=1e-30))) - 7)
+    bad = (diff > BF16_RTOL * scale) & (diff > step)
+    require(not bool(bad.any()), f"bf16 mismatch {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events, warmed)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def lane_inputs(gen, nbrs, table_rows, w, *, dtype, n_live, row0=0):
+    """One random lane-probe level over the rows of ``nbrs``: some finished
+    columns, injections and exclusions inside the rows, some sentinels."""
+    import torch
+
+    dev = nbrs.device
+    r = nbrs.shape[0]
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ids(lo, hi):
+        x = torch.randint(lo, hi, (w,), generator=gen, device=dev)
+        return torch.where(rand(w) < 0.5, x, torch.full_like(x, n_live)).int()
+
+    return dict(
+        nbrs=nbrs,
+        weights=rand(r),
+        table=rand(table_rows, w).to(dtype),
+        dep=rand(r, w).to(dtype),
+        total=rand(r, w).to(dtype),
+        fin=rand(w) < 0.4,
+        u_p=ids(row0, row0 + r),
+        u_prev=ids(row0, row0 + r),
+        thr=rand(w) * 0.3,
+    )
+
+
+def check_lane(args, *, row0=0, tab0=0, n_live, prune):
+    import torch
+
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
+
+    kw = dict(row0=row0, tab0=tab0, n_live=n_live, prune=prune)
+    out, tot = lane_probe_level(**args, **kw)
+    ref_out, ref_tot = lane_probe_level_ref(**args, **kw)
+    cmp = fp32_err if args["table"].dtype == torch.float32 else bf16_close
+    return max(cmp(out, ref_out), cmp(tot, ref_tot)), out
+
+
+def small_lane_cases(gen, dev) -> None:
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, w in ((50, 24), (30, 37), (130, 24), (7, 300)):
+            nbrs = torch.randint(0, n + 1, (n, 6), generator=gen, device=dev).int()
+            for prune in (False, True):
+                check_lane(lane_inputs(gen, nbrs, n + 1, w, dtype=dtype, n_live=n),
+                           n_live=n, prune=prune)
+        n, w = 30, 12
+        nbrs = torch.randint(0, n + 1, (n, 6), generator=gen, device=dev).int()
+        # all lanes dead: every column finished, no injection
+        a = lane_inputs(gen, nbrs, n + 1, w, dtype=dtype, n_live=n)
+        a["fin"] = torch.ones(w, dtype=torch.bool, device=dev)
+        a["u_p"] = torch.full((w,), n, dtype=torch.int32, device=dev)
+        _, out = check_lane(a, n_live=n, prune=False)
+        require(bool((out == 0).all()), "all-dead level pushed mass")
+        # a single active column among finished ones
+        a = lane_inputs(gen, nbrs, n + 1, w, dtype=dtype, n_live=n)
+        a["fin"] = torch.ones(w, dtype=torch.bool, device=dev)
+        a["fin"][4] = False
+        check_lane(a, n_live=n, prune=True)
+        # sentinel u_p / u_prev everywhere, and a row of nothing but sentinels
+        a = lane_inputs(gen, nbrs.clone(), n + 1, w, dtype=dtype, n_live=n)
+        a["nbrs"][7] = n
+        a["u_p"] = torch.full((w,), n, dtype=torch.int32, device=dev)
+        a["u_prev"] = torch.full((w,), n, dtype=torch.int32, device=dev)
+        _, out = check_lane(a, n_live=n, prune=False)
+        require(bool((out[7] == 0).all()), "sentinel row pushed mass")
+        # offset addressing: spmd (tab0 = row0) and ring (tab0 = 0) layouts
+        nb = torch.randint(0, 121, (40, 6), generator=gen, device=dev).int()
+        check_lane(lane_inputs(gen, nb, 120, 16, dtype=dtype, n_live=120, row0=40),
+                   row0=40, tab0=40, n_live=120, prune=True)
+        check_lane(lane_inputs(gen, nb, 40, 16, dtype=dtype, n_live=120, row0=80),
+                   row0=80, tab0=0, n_live=120, prune=False)
+
+
+def small_spmm_cases(gen, dev) -> None:
+    import torch
+
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell
+    from repro_torch.kernels.spmm_ell.ref import spmm_ell_ref
+
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for n, k, b in ((128, 4, 8), (100, 3, 8), (384, 16, 32), (33, 7, 300)):
+            nbrs = torch.randint(0, n + 1, (n, k), generator=gen, device=dev).int()
+            scores = torch.randn((n, b), generator=gen, device=dev).to(dtype)
+            w = torch.rand(n, generator=gen, device=dev) + 0.1
+            out, ref = spmm_ell(nbrs, scores, w), spmm_ell_ref(nbrs, scores, w)
+            (fp32_err if dtype == torch.float32 else bf16_close)(out, ref)
+        vec = torch.randn(n, generator=gen, device=dev).to(dtype)
+        (fp32_err if dtype == torch.float32 else bf16_close)(
+            spmm_ell(nbrs, vec, w), spmm_ell_ref(nbrs, vec, w))
+
+
+def kernel_phase(h, params, gen) -> dict:
+    """Slice and full-shape comparisons plus timings; returns the kernel rows."""
+    import torch
+
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
+    from repro_torch.kernels.spmm_ell.ref import spmm_ell_padded_ref
+
+    eg = h.eg
+    n, k = eg.n, eg.k_max
+    w_lanes = 256
+    deg = eg.in_deg
+    hub = int(torch.argmax(deg))
+    s0 = max(0, min(hub - SLICE_ROWS // 2, n - SLICE_ROWS))
+    rows = eg.in_nbrs[s0 : s0 + SLICE_ROWS]
+    live_slots = int((eg.in_nbrs < n).sum())
+    log(f"hepph ELL: n={n} K={k} live slots={live_slots} "
+        f"({eg.in_nbrs.numel() * 4 / 1e9:.3f} GB int32); slice rows "
+        f"[{s0}, {s0 + SLICE_ROWS}) holds the hub row {hub} "
+        f"(in-degree {int(deg[hub])})")
+
+    # --- lane_probe: slice with row0 = tab0 = slice start, fp32 and bf16,
+    # the main path's push weights (sqrt(c) / in-degree) ---------------------
+    w_push = eg.inv_in_deg * params.sqrt_c
+    w_rows = w_push[s0 : s0 + SLICE_ROWS].contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        for prune in (False, True):
+            a = lane_inputs(gen, rows, n + 1, w_lanes, dtype=dtype, n_live=n,
+                            row0=s0)
+            a["weights"] = w_rows
+            err, _ = check_lane(a, row0=s0, tab0=s0, n_live=n, prune=prune)
+            log(f"lane_probe slice {dtype} prune={prune}: max_abs_err={err:.3e}")
+    # where a level's time goes: the slice holding the hub row vs one without
+    s1 = (s0 + n // 2) % (n - SLICE_ROWS)
+    if s1 <= hub < s1 + SLICE_ROWS:
+        s1 = (s1 + SLICE_ROWS) % (n - SLICE_ROWS)
+    for name, lo in (("with the hub row", s0), ("without it", s1)):
+        a = lane_inputs(gen, eg.in_nbrs[lo : lo + SLICE_ROWS], n + 1, w_lanes,
+                        dtype=torch.float32, n_live=n, row0=lo)
+        a["weights"] = w_push[lo : lo + SLICE_ROWS].contiguous()
+        ms = time_ms(lambda: lane_probe_level(**a, row0=lo, tab0=lo, n_live=n,
+                                              prune=True), 10)
+        live = int((a["nbrs"] < n).sum())
+        log(f"lane_probe {SLICE_ROWS}-row slice [{lo}, {lo + SLICE_ROWS}) "
+            f"{name}: {ms:.4f} ms, {live} live slots, bound "
+            f"{bound_ms(SLICE_ROWS * k * 4, 0)[0]:.4f} ms")
+
+    # --- lane_probe at the main path's shape: R = n, T = n + 1, W = 256 ---
+    full = lane_inputs(gen, eg.in_nbrs, n + 1, w_lanes, dtype=torch.float32,
+                       n_live=n)
+    full["weights"] = w_push
+    kw = dict(row0=0, tab0=0, n_live=n, prune=True)
+    lane_ms = time_ms(lambda: lane_probe_level(**full, **kw), 10)
+    out, tot = lane_probe_level(**full, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_out, ref_tot = lane_probe_level_ref(**full, **kw)
+    torch.cuda.synchronize()
+    lane_plain_ms = (time.perf_counter() - t0) * 1e3
+    lane_err = max(fp32_err(out, ref_out), fp32_err(tot, ref_tot))
+    fin_frac = float(full["fin"].float().mean())
+    lane_bytes = (n * k * 4 + n * 4 + (n + 1) * w_lanes * 4 + 4 * n * w_lanes * 4
+                  + 4 * w_lanes * 4)
+    lane_ops = live_slots * w_lanes * (1.0 - fin_frac) * 4 + n * w_lanes * 2
+    lane_bound, lane_by = bound_ms(lane_bytes, lane_ops)
+    log(f"lane_probe full [{n}x{k}] W={w_lanes}: max_abs_err={lane_err:.3e} "
+        f"kernel {lane_ms:.4f} ms, plain {lane_plain_ms:.1f} ms, "
+        f"bound {lane_bound:.4f} ms ({lane_by})")
+
+    # --- spmm_ell: slice at B = 64, then the full table ---------------------
+    b = 64
+    scores = torch.rand((n + 1, b), generator=gen, device=eg.device)
+    scores[n] = 0.0
+    out = spmm_ell_padded(rows, scores, w_rows)
+    ref = spmm_ell_padded_ref(rows, scores, w_rows)
+    log(f"spmm_ell slice fp32 B={b}: max_abs_err={fp32_err(out, ref):.3e}")
+    sb = scores.to(torch.bfloat16)
+    out = spmm_ell_padded(rows, sb, w_rows)
+    ref = spmm_ell_padded_ref(rows, sb, w_rows)
+    log(f"spmm_ell slice bf16 B={b}: max_abs_err={bf16_close(out, ref):.3e}")
+
+    spmm_ms = time_ms(lambda: spmm_ell_padded(eg.in_nbrs, scores, w_push), 10)
+    out = spmm_ell_padded(eg.in_nbrs, scores, w_push)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = spmm_ell_padded_ref(eg.in_nbrs, scores, w_push)
+    torch.cuda.synchronize()
+    spmm_plain_ms = (time.perf_counter() - t0) * 1e3
+    spmm_err = fp32_err(out, ref)
+    # library yardstick: one CSR sparse-dense product on the same operands
+    live = eg.in_nbrs < n
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=eg.device)
+    crow[1:] = torch.cumsum(live.sum(dim=1), 0)
+    colx = eg.in_nbrs[live].long()
+    vals = w_push[:, None].expand(n, k)[live]
+    csr = torch.sparse_csr_tensor(crow, colx, vals, size=(n, n + 1))
+    del live
+    fp32_err(torch.sparse.mm(csr, scores), out)
+    lib_ms = time_ms(lambda: torch.sparse.mm(csr, scores), 10)
+    spmm_bytes = n * k * 4 + (n + 1) * b * 4 + n * 4 + n * b * 4
+    spmm_bound, spmm_by = bound_ms(spmm_bytes, live_slots * b + n * b)
+    log(f"spmm_ell full [{n}x{k}] B={b}: max_abs_err={spmm_err:.3e} "
+        f"kernel {spmm_ms:.4f} ms, plain {spmm_plain_ms:.1f} ms, "
+        f"torch.sparse.mm {lib_ms:.4f} ms, bound {spmm_bound:.4f} ms ({spmm_by})")
+    del csr, full, scores, sb, out, ref, ref_out, ref_tot, tot
+    torch.cuda.empty_cache()
+    return {
+        "lane_probe": dict(
+            name="lane_probe", route="cuda",
+            source="src/repro_torch/kernels/csrc/lane_probe.cu",
+            replaces="src/repro/kernels/lane_probe/lane_probe.py:57",
+            max_abs_err=lane_err, ms=lane_ms, plain_ms=lane_plain_ms,
+            bound_ms=lane_bound, bound_by=lane_by, library_ms=None,
+        ),
+        "spmm_ell": dict(
+            name="spmm_ell", route="cuda",
+            source="src/repro_torch/kernels/csrc/spmm_ell.cu",
+            replaces="src/repro/kernels/spmm_ell/spmm_ell.py:31",
+            max_abs_err=spmm_err, ms=spmm_ms, plain_ms=spmm_plain_ms,
+            bound_ms=spmm_bound, bound_by=spmm_by, library_ms=lib_ms,
+        ),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the main path at real size
+# ---------------------------------------------------------------------------
+
+
+def topk_agree(env_a, env_b, tol: float) -> float:
+    """Top-k scores within ``tol``; ids equal wherever the scores are untied."""
+    import numpy as np
+
+    sa, sb = np.asarray(env_a.topk_scores), np.asarray(env_b.topk_scores)
+    err = float(np.abs(sa - sb).max())
+    require(err <= tol, f"top-k scores differ by {err}")
+    gaps = np.abs(np.diff(sa))
+    untied = np.ones(len(sa), bool)
+    untied[:-1] &= gaps > 2 * tol
+    untied[1:] &= gaps > 2 * tol
+    require(np.array_equal(np.asarray(env_a.topk_nodes)[untied],
+                          np.asarray(env_b.topk_nodes)[untied]), "top-k ids differ")
+    return err
+
+
+def main_path(h, params) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.api import SimRankSession
+    from repro_torch.core import single_source
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
+
+    deg = h.eg.in_deg.cpu().numpy()
+    cand = np.flatnonzero(deg >= 1)
+    nodes = np.random.default_rng(0).choice(cand, 16, replace=False).tolist()
+    sess = SimRankSession(h, walk_chunk=256, batch_q=8, seed=0)
+    n_r = sess.params.n_r
+
+    # the main path, with every launch counter read around it
+    lane_probe_level.launches = 0
+    spmm_ell_padded.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [sess.submit(u) for u in nodes]
+    envs = sess.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    u_tree = nodes[0]
+    t0 = time.perf_counter()
+    tree = single_source(7, h.eg, h.eg, u_tree, sess.params, variant="tree",
+                         walk_chunk=256)
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    launches = {"lane_probe": lane_probe_level.launches,
+                "spmm_ell": spmm_ell_padded.launches}
+    batches = sess.stats.steps
+    log(f"main path: {len(envs)} top-k queries in {batches} batches, "
+        f"{drain_s:.3f} s ({len(envs) / drain_s:.2f} queries/s, "
+        f"{drain_s / batches * 1e3:.1f} ms per drained batch); "
+        f"tree single_source {tree_s:.3f} s; launches {launches}")
+    require(launches["lane_probe"] > 0 and launches["spmm_ell"] > 0,
+            f"a kernel of the main path never launched: {launches}")
+
+    bound = sess.error_bound(n_r)
+    for u, t, env in zip(nodes, tickets, envs):
+        require(t.envelope is env and env.node == u, f"ticket of node {u}")
+        require(env.version == 0 and env.walks_used == n_r,
+                f"envelope version/walks {env.version}/{env.walks_used}")
+        require(env.error_bound == bound <= sess.params.eps_a + 1e-3,
+                f"error bound {env.error_bound}")
+        s = np.asarray(env.topk_scores)
+        require(s.shape == (50,) and np.isfinite(s).all(), f"top-k scores {s}")
+        require((np.diff(s) <= 0).all() and u not in set(env.topk_nodes.tolist()),
+                f"top-k of node {u} unsorted or holds u")
+    tree = tree.cpu().numpy()
+    require(np.isfinite(tree).all() and tree[u_tree] == 1.0, "tree estimate")
+
+    # the same queries served one at a time under the same seeds
+    serial = SimRankSession(h, walk_chunk=256, batch_q=1, seed=0, own_graph=False)
+    for u in nodes[:2]:
+        serial.submit(u)
+    serr = max(topk_agree(a, b, 1e-5) for a, b in zip(envs, serial.drain()))
+    # the same batch with the kernel off (COO push), same seeds
+    off = SimRankSession(h, walk_chunk=256, batch_q=8, seed=0, use_kernel=False,
+                         own_graph=False)
+    for u in nodes:
+        off.submit(u)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off_envs = off.drain()
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    oerr = max(topk_agree(a, b, 1e-5) for a, b in zip(envs, off_envs))
+    # tree vs telescoped on one node: two estimates of the same SimRank
+    tele = single_source(7, h.g, h.eg, u_tree, sess.params).cpu().numpy()
+    terr = float(np.abs(tele - tree).max())
+    require(terr <= 2 * bound, f"|tree - telescoped| = {terr}")
+    log(f"serial == batched within {serr:.3e}; kernel-off == kernel within "
+        f"{oerr:.3e} (kernel-off drain {off_s:.3f} s); |tree - telescoped| "
+        f"= {terr:.3e} <= 2 x bound {2 * bound:.4f}")
+    del sess, serial, off
+    torch.cuda.empty_cache()
+    return launches, nodes
+
+
+def profile_batch(h, nodes) -> None:
+    """Device time by kernel over one more drained batch of 8 (a new seed),
+    from torch.profiler; the busy share is the kernels' summed device time
+    over the batch's wall time (one stream, so kernels do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import SimRankSession
+
+    sess = SimRankSession(h, walk_chunk=256, batch_q=8, seed=1, own_graph=False)
+    for u in nodes[:8]:
+        sess.submit(u)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.drain()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    log(f"profiled drain of 8 queries: wall {wall_ms:.1f} ms (profiler on), "
+        f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), "
+        f"{len(rows)} kernel names")
+    for key, ms, count in rows[:6]:
+        log(f"  {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def toy_accuracy(dev) -> None:
+    import numpy as np
+
+    from repro_torch.api import GraphHandle, QuerySpec, SimRankSession
+    from repro_torch.graph import TOY_TABLE2, toy_graph
+    from repro_torch.graph.generators import TOY_NODES
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+
+    src, dst, n = toy_graph()
+    h = GraphHandle.from_edges(src, dst, n, device=dev)
+    sess = SimRankSession(h, c=0.25, eps_a=0.1, seed=0)
+    before = lane_probe_level.launches
+    sess.submit(QuerySpec(kind="single_source", node=0))
+    (env,) = sess.drain()
+    require(lane_probe_level.launches > before, "toy drain launched no lane_probe")
+    bound = env.error_bound
+    err = max(abs(float(env.scores[i]) - TOY_TABLE2[ch])
+              for i, ch in enumerate(TOY_NODES))
+    require(err <= bound, f"toy: max error {err} > bound {bound}")
+    require(np.isfinite(env.scores).all(), "toy scores not finite")
+    log(f"toy graph (c=0.25): max |estimate - Table 2| = {err:.4f} <= {bound:.4f}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    pkg = ROOT / "src" / "repro_torch"
+    require(pkg.is_dir(), f"no port package at {pkg}")
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+
+    require(Path(repro_torch.__file__).resolve().parent == pkg,
+            f"imported {repro_torch.__file__}, not the checkout's package")
+    from repro_torch.api import GraphHandle
+    from repro_torch.core import make_params
+    from repro_torch.graph import paper_dataset
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    log(smi)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(str(_build.library_path(k).name) for k in _build.KERNELS)})")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    small_lane_cases(gen, dev)
+    small_spmm_cases(gen, dev)
+    torch.cuda.synchronize()
+    log("small kernel cases: ok (lane_probe fp32/bf16, spmm_ell fp32/fp16/bf16)")
+
+    t0 = time.perf_counter()
+    src, dst, n = paper_dataset("hepph", 1.0)
+    h = GraphHandle.from_edges(src, dst, n, device=dev)
+    torch.cuda.synchronize()
+    log(f"hepph stand-in: n={n} m={len(src)}; handle built on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    params = make_params(n)  # the session's defaults: c = 0.6, eps_a = 0.1
+    require((params.n_r, params.max_len) == (10840, 12), f"params {params}")
+    rows = kernel_phase(h, params, gen)
+    launches, nodes = main_path(h, params)
+    profile_batch(h, nodes)
+    toy_accuracy(dev)
+
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,29 @@
+"""repro_torch.api — the session surface over the live graph.
+
+``GraphHandle`` owns the COO + ELL mirror pair; ``QuerySpec`` /
+``ResultEnvelope`` are the typed request/response pair; ``SimRankSession``
+serves one-shot queries and queued fused batches (``submit`` ->
+``QueryTicket``; ``drain``) through ``LocalBackend``.
+"""
+from repro_torch.api.backend import Backend, LocalBackend
+from repro_torch.api.handle import GraphHandle
+from repro_torch.api.session import (
+    EngineStats,
+    QueryTicket,
+    SimRankSession,
+)
+from repro_torch.api.spec import QuerySpec, ResultEnvelope, as_spec
+from repro_torch.core.params import abs_error_bound
+
+__all__ = [
+    "Backend",
+    "EngineStats",
+    "GraphHandle",
+    "LocalBackend",
+    "QuerySpec",
+    "QueryTicket",
+    "ResultEnvelope",
+    "SimRankSession",
+    "abs_error_bound",
+    "as_spec",
+]

@@ -1,0 +1,121 @@
+"""ProbeSim single-source & top-k drivers (paper Alg. 1 + Alg. 3 + §4),
+port of ``repro.core.probesim``.
+
+Variants (all estimate the same unbiased quantity):
+
+* ``reference``   — literal Alg. 1/2, host loops (oracle; small inputs).
+* ``telescoped``  — the fused serve path (default): the Q = 1 case of
+                    ``core.multisource.multi_source``.
+* ``tree``        — Alg. 3 prefix-tree batching + telescoping, per walk
+                    chunk.
+* ``auto``        — per chunk, the tree when walks share prefixes enough
+                    (dedup ratio >= 1.5), else the telescoped batch.
+* ``randomized``  — Alg. 4 Bernoulli probes: not ported yet.
+
+Each walk chunk and each query draws from its own generator, seeded from
+``seed`` by ``derive_seed``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.multisource import multi_source, topk_rows
+from repro_torch.core.params import ProbeSimParams
+from repro_torch.core.probe import (
+    estimate_walk_reference,
+    probe_tree_levels,
+    probe_walks_telescoped,
+)
+from repro_torch.core.tree import build_prefix_tree, tree_stats
+from repro_torch.core.walks import derive_seed, make_generator, sample_walks
+from repro_torch.graph.structs import EllGraph, Graph
+
+Tensor = torch.Tensor
+
+
+def _walk_chunks(n_r: int, chunk: int) -> list[int]:
+    return [min(chunk, n_r - a) for a in range(0, n_r, chunk)]
+
+
+def single_source(
+    seed: int,
+    g: Graph | EllGraph,
+    eg: EllGraph,
+    u: int,
+    params: ProbeSimParams,
+    *,
+    variant: str = "telescoped",
+    walk_chunk: int = 512,
+    use_kernel: bool = True,
+) -> Tensor:
+    """Approximate single-source SimRank: returns estimates [n] (entry u = 1).
+
+    ``g`` is the push representation (COO or ELL), ``eg`` the ELL table used
+    for walk sampling (they may be the same object).
+    """
+    n = eg.n
+    dev = eg.device
+    sqrt_c = params.sqrt_c
+    total = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    if variant == "telescoped":
+        return multi_source(
+            seed, g, eg, [u], params, lanes=walk_chunk, use_kernel=use_kernel,
+        )[0]
+    if variant == "reference":
+        walks = sample_walks(
+            make_generator(derive_seed(seed, 0), dev), eg, u,
+            n_r=params.n_r, max_len=params.max_len, sqrt_c=sqrt_c,
+        )
+        for k in range(params.n_r):
+            total = total + estimate_walk_reference(
+                g, walks[k], sqrt_c, eps_p=params.eps_p
+            )
+    elif variant in ("tree", "auto"):
+        for ci, b in enumerate(_walk_chunks(params.n_r, walk_chunk)):
+            walks = sample_walks(
+                make_generator(derive_seed(seed, ci), dev), eg, u,
+                n_r=b, max_len=params.max_len, sqrt_c=sqrt_c,
+            )
+            tree = build_prefix_tree(walks.cpu().numpy(), n)
+            if not tree.nodes:  # every walk terminated at u immediately
+                continue
+            if variant == "auto" and tree_stats(tree)["dedup_ratio"] < 1.5:
+                total = total + probe_walks_telescoped(
+                    g, walks, sqrt_c=sqrt_c, eps_p=params.eps_p,
+                    use_kernel=use_kernel,
+                ).sum(dim=1)
+                continue
+            total = total + probe_tree_levels(
+                g, tree.nodes, tree.weights, tree.parent, tree.parent_node,
+                sqrt_c=sqrt_c, eps_p=params.eps_p, use_kernel=use_kernel,
+            )
+    elif variant == "randomized":
+        raise NotImplementedError(
+            "variant='randomized' needs core/probe_random.py, not ported yet "
+            "(ROADMAP queue 1 item 10)"
+        )
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+
+    est = total / params.n_r
+    if params.truncation_shift:
+        est = torch.where(est > 0, est + params.eps_t / 2, est)
+    est[u] = 1.0
+    return est
+
+
+def topk(
+    seed: int,
+    g: Graph | EllGraph,
+    eg: EllGraph,
+    u: int,
+    k: int,
+    params: ProbeSimParams,
+    **kwargs,
+) -> tuple[Tensor, Tensor]:
+    """Approximate top-k query (paper Def. 2): (nodes [k], estimates [k])."""
+    est = single_source(seed, g, eg, u, params, **kwargs)
+    us = torch.tensor([u], device=est.device)
+    idx, vals = topk_rows(est[None, :], us, k)
+    return idx[0], vals[0]

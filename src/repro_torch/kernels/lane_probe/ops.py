@@ -1,0 +1,115 @@
+"""Public op: one fused compacted-lane probe level, on the card or the CPU.
+
+``lane_probe_level`` runs deposit + inject + prune + ELL push + exclusion
+for one level of the compacted lane schedule (core/multisource.py) in one
+pass.  Given CUDA tensors it launches ``csrc/lane_probe.cu`` (which
+replaces the Pallas kernel ``src/repro/kernels/lane_probe/lane_probe.py``)
+for any shape, or raises; given CPU tensors it runs the plain version
+(``ref.py``).  There is no fallback from the card to the plain version.
+
+Storage dtype follows ``table`` (float32, or bfloat16 with fp32
+accumulation); ``dep`` and ``total`` must match it.  Neighbor ids are
+global: id x reads table row ``x - row0 + tab0``, ids >= n_live are
+sentinels and contribute nothing.
+
+``lane_probe_level.launches`` counts kernel launches (not plain-version
+calls); set it to 0 to start a count.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
+
+Tensor = torch.Tensor
+
+_SYMBOLS = {torch.float32: "lane_probe_level_f32",
+            torch.bfloat16: "lane_probe_level_bf16"}
+_fns: dict = {}
+
+
+def _kernel(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = _build.bind(_build.load("lane_probe"), _SYMBOLS[dtype], 11, 8)
+        _fns[dtype] = fn
+    return fn
+
+
+def _check(nbrs, weights, table, dep, total, fin, u_p, u_prev, thr) -> None:
+    r, _ = nbrs.shape
+    w = table.shape[1]
+    dev = table.device
+    if table.dtype not in _SYMBOLS:
+        raise TypeError(f"lane_probe: storage dtype {table.dtype} not supported")
+    want = {
+        "nbrs": (nbrs, torch.int32, (r, nbrs.shape[1])),
+        "weights": (weights, torch.float32, (r,)),
+        "dep": (dep, table.dtype, (r, w)),
+        "total": (total, table.dtype, (r, w)),
+        "fin": (fin, torch.int32, (w,)),
+        "u_p": (u_p, torch.int32, (w,)),
+        "u_prev": (u_prev, torch.int32, (w,)),
+        "thr": (thr, torch.float32, (w,)),
+    }
+    for name, (x, dtype, shape) in want.items():
+        if x.device != dev:
+            raise ValueError(f"lane_probe: {name} on {x.device}, table on {dev}")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"lane_probe: {name} must be {dtype} {shape}, "
+                f"got {x.dtype} {tuple(x.shape)}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"lane_probe: {name} must be contiguous")
+    if not table.is_contiguous():
+        raise ValueError("lane_probe: table must be contiguous")
+
+
+def lane_probe_level(
+    nbrs: Tensor,     # int32 [R, K] global in-neighbor ids (sentinel >= n_live)
+    weights: Tensor,  # f32 [R] push weights (inv_in_deg * sqrt_c)
+    table: Tensor,    # [T, W] gather source (full frontier or own block)
+    dep: Tensor,      # [R, W] pre-level scores of these rows (deposit source)
+    total: Tensor,    # [R, W] per-column accumulator
+    fin: Tensor,      # bool [W] columns depositing this level
+    u_p: Tensor,      # int32 [W] injection ids (>= n_live: no-op)
+    u_prev: Tensor,   # int32 [W] exclusion ids (>= n_live: no-op)
+    thr: Tensor,      # f32 [W] prune thresholds (ignored unless ``prune``)
+    *,
+    row0: int,
+    tab0: int,
+    n_live: int,
+    prune: bool,
+) -> tuple[Tensor, Tensor]:
+    """Returns ``(scores_out [R, W], total_out [R, W])`` for one level."""
+    if table.device.type == "cpu":
+        return lane_probe_level_ref(
+            nbrs, weights, table, dep, total, fin, u_p, u_prev, thr,
+            row0=row0, tab0=tab0, n_live=n_live, prune=prune,
+        )
+    if table.device.type != "cuda":
+        raise ValueError(f"lane_probe: no kernel for device {table.device}")
+    fin = fin.to(torch.int32)
+    _check(nbrs, weights, table, dep, total, fin, u_p, u_prev, thr)
+    r, k = nbrs.shape
+    t, w = table.shape
+    out = torch.empty((r, w), dtype=table.dtype, device=table.device)
+    tot = torch.empty((r, w), dtype=total.dtype, device=table.device)
+    if r == 0 or w == 0:
+        return out, tot
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = _kernel(table.dtype)(
+        nbrs.data_ptr(), weights.data_ptr(), table.data_ptr(), dep.data_ptr(),
+        total.data_ptr(), fin.data_ptr(), u_p.data_ptr(), u_prev.data_ptr(),
+        thr.data_ptr(), out.data_ptr(), tot.data_ptr(),
+        r, k, t, w, int(row0), int(tab0), int(n_live), int(bool(prune)),
+        stream,
+    )
+    _build.check(rc, "lane_probe")
+    lane_probe_level.launches += 1
+    return out, tot
+
+
+lane_probe_level.launches = 0

@@ -40,3 +40,11 @@ def rng():
 @pytest.fixture()
 def key():
     return jax.random.key(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (CUDA kernels of repro_torch); skips "
+        "when torch.cuda.is_available() is false",
+    )

@@ -1,0 +1,85 @@
+"""repro_torch stands alone: it imports neither jax nor repro, and its entry
+points never choose the CPU on their own."""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+
+PKG = Path(repro_torch.__file__).resolve().parent
+
+
+def _modules() -> list[str]:
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix="repro_torch.")
+    )
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.kernels.lane_probe.ops" in mods
+    assert "repro_torch.api.session" in mods
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert all(sys.modules[m] is None for m in bad), bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    src = str(PKG.parent)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin"},
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+def test_no_jax_or_repro_import_statements():
+    offenders = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "repro"):
+                    offenders.append(f"{path.relative_to(PKG)}: {name}")
+    assert not offenders, offenders
+
+
+def test_entry_points_default_to_cuda():
+    """Without device= an entry point targets CUDA; with no card it raises
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.api import GraphHandle
+    from repro_torch.graph import ell_from_edges, graph_from_edges, toy_graph
+    from repro_torch.graph.convert import graph_from_arrays
+
+    src, dst, n = toy_graph()
+    for call in (
+        lambda: GraphHandle.from_edges(src, dst, n),
+        lambda: graph_from_edges(src, dst, n),
+        lambda: ell_from_edges(src, dst, n),
+        lambda: graph_from_arrays(src=src, dst=dst, n=n),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    h = GraphHandle.from_edges(src, dst, n, device="cpu")
+    assert h.device.type == "cpu" and isinstance(h.g.src, torch.Tensor)
+    assert np.array_equal(h.to_host_edges()[0], src)

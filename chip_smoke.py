@@ -5,17 +5,25 @@
 
 Phases (any failure exits non-zero before the result line):
 
-1. the card's name and power limit; build both CUDA kernels with nvcc;
+1. the card's name and power limit; build the four CUDA kernels with nvcc,
+   one process per source, all at once;
 2. each kernel against its plain PyTorch version on the card: small edge
-   cases, a 4,096-row slice of the HepPh ELL table, and the main path's full
-   shape, with timings (kernel, plain version, byte bound, library call);
-3. the main path at real size: 16 top-k queries on the HepPh stand-in
+   cases, then the shapes of the paths below, with timings (kernel, plain
+   version, bound, library call): lane_probe, spmm_ell and probe_push on the
+   HepPh ELL table, flash_attention at Llama-3.2-1B's 32k prefill shape;
+3. the SimRank path at real size: 16 top-k queries on the HepPh stand-in
    (``paper_dataset("hepph", 1.0)``) submitted to ``SimRankSession`` and
    drained in batches of 8, then one ``single_source(variant="tree")`` on
    the ELL table — with the launch counters read around that window; then
    serial and kernel-off runs under the same seeds must agree;
 4. accuracy: node a of the paper's toy graph at c = 0.25 within the
-   Thm-1/2 bound of the paper's Table 2.
+   Thm-1/2 bound of the paper's Table 2;
+5. the LM path at Llama-3.2-1B's full width (random bf16 weights from a
+   seeded generator) through ``repro_torch.arch``: a 32,768-token prefill
+   (``prefill_32k``, batch cut from 32 to 1) and 16 greedy decode steps over
+   an 8 x 32,768 cache (``decode_32k``, batch cut from 128 to 8), with the
+   launch counters read around that window; then kernel-off prefill and 64
+   teacher-forced decode steps against the kernel-on forward must agree.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -30,14 +38,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FLOP/s
-# outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 FP32_RTOL = 1e-5  # kernel vs plain in fp32: only the summation order differs
 BF16_RTOL = 1e-3  # bf16 storage: ... or one bf16 step, see bf16_close
 SLICE_ROWS = 4096
+# the LM path's attention shape: Llama-3.2-1B prefill of 32,768 tokens
+# (B, S = T, H, Hkv, dh)
+FLASH_SHAPE = (1, 32768, 32, 8, 64)
+# LM logits in bf16 compute, kernel-on against kernel-off and decode against
+# forward: both sides round every activation to bf16 over 16 layers, in
+# different orders (flash vs chunked softmax, one query vs all).  Held at
+# 3e-2 of the logits' scale (the CPU port-vs-reference bf16 check at 2
+# layers measures 0.0078 at scale 1).
+LM_TOL = 3e-2
 
 
 def log(*args) -> None:
@@ -93,9 +111,10 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -325,8 +344,170 @@ def kernel_phase(h, params, gen) -> dict:
     }
 
 
+def plain_ms(fn):
+    """Host time of one call of a plain version (synchronized), and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def small_probe_push_cases(gen, dev) -> None:
+    """probe_push against its plain version: awkward n and B, thresholds,
+    exclusions of n (none) and in range, rows of sentinels, ids past n."""
+    import torch
+
+    from repro_torch.kernels.probe_push.ops import probe_push
+    from repro_torch.kernels.probe_push.ref import probe_push_ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cmp = fp32_err if dtype == torch.float32 else bf16_close
+        for n, k, b in ((128, 4, 8), (100, 3, 8), (33, 700, 300), (7, 5, 1),
+                        (1000, 16, 37)):
+            nbrs = torch.randint(0, n + 1, (n, k), generator=gen, device=dev).int()
+            nbrs[n // 2] = n  # a row of nothing but sentinels
+            nbrs[0, 0] = n + 5  # an id past the sentinel reads the zero row
+            scores = torch.rand((n, b), generator=gen, device=dev).to(dtype)
+            w = torch.rand(n, generator=gen, device=dev) + 0.1
+            excl = torch.randint(0, n + 1, (b,), generator=gen, device=dev).int()
+            excl[0] = n  # excludes nothing
+            for thr in (0.0, 0.3, 2.0):  # 2.0 is above every score
+                out = probe_push(nbrs, scores, w, excl, prune_thresh=thr)
+                cmp(out, probe_push_ref(nbrs, scores, w, excl, thr))
+                require(bool((out[n // 2] == 0).all()), "sentinel row pushed mass")
+                if thr == 2.0:
+                    require(bool((out == 0).all()), "threshold above all kept mass")
+            cols = torch.nonzero(excl < n).flatten()
+            require(bool((out[excl[cols].long(), cols] == 0).all()),
+                    "excluded row kept mass")
+        all_sent = torch.full((50, 4), 50, dtype=torch.int32, device=dev)
+        s = torch.rand((50, 9), generator=gen, device=dev).to(dtype)
+        out = probe_push(all_sent, s, torch.ones(50, device=dev),
+                         torch.full((9,), 50, dtype=torch.int32, device=dev))
+        require(bool((out == 0).all()), "all-sentinel table pushed mass")
+
+
+def flash_inputs(gen, dev, B, S, T, H, Hkv, dh, dtype):
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return rn(B, S, H, dh), rn(B, T, Hkv, dh), rn(B, T, Hkv, dh)
+
+
+def small_flash_cases(gen, dev) -> None:
+    """flash_attention against its plain version: MHA, GQA, MQA; S and T off
+    the 64-row tile; causal and not; fp32 and bf16; head widths 16 to 128."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cases = (  # B, S, T, H, Hkv, dh, causal
+        (1, 128, 128, 2, 2, 16, True),     # MHA
+        (2, 200, 200, 8, 2, 64, True),     # GQA, S off the tile
+        (1, 70, 70, 4, 1, 128, True),      # MQA, dh 128
+        (2, 33, 150, 4, 4, 100, False),    # S != T, dh off the padding
+        (1, 1, 1, 32, 8, 64, True),        # one token
+        (2, 1000, 1000, 32, 8, 64, True),  # Llama-3.2-1B heads
+        (1, 300, 300, 8, 8, 128, False),
+    )
+    for dtype in (torch.float32, torch.bfloat16):
+        cmp = fp32_err if dtype == torch.float32 else bf16_close
+        for B, S, T, H, Hkv, dh, causal in cases:
+            q, k, v = flash_inputs(gen, dev, B, S, T, H, Hkv, dh, dtype)
+            out = flash_attention(q, k, v, causal=causal)
+            cmp(out, attention_ref(q, k, v, causal=causal))
+            require(out.dtype == dtype and out.shape == q.shape, "flash output")
+
+
+def probe_push_phase(h, params, gen) -> dict:
+    """probe_push on the HepPh ELL table at B = 64 (a threshold, exclusions
+    inside the table and of n): kernel against plain version, timings."""
+    import torch
+
+    from repro_torch.kernels.probe_push.ops import probe_push
+    from repro_torch.kernels.probe_push.ref import probe_push_ref
+
+    eg = h.eg
+    n, k, b = eg.n, eg.k_max, 64
+    dev = eg.device
+    scores = torch.rand((n, b), generator=gen, device=dev)
+    w = (eg.inv_in_deg * params.sqrt_c).contiguous()
+    excl = torch.randint(0, n + 1, (b,), generator=gen, device=dev).int()
+    excl[: b // 4] = n
+    thr = 0.05
+    ms = time_ms(lambda: probe_push(eg.in_nbrs, scores, w, excl, prune_thresh=thr), 10)
+    out = probe_push(eg.in_nbrs, scores, w, excl, prune_thresh=thr)
+    p_ms, ref = plain_ms(lambda: probe_push_ref(eg.in_nbrs, scores, w, excl, thr))
+    err = fp32_err(out, ref)
+    nbytes = n * k * 4 + n * b * 4 + n * 4 + b * 4 + n * b * 4
+    live_slots = int((eg.in_nbrs < n).sum())
+    bound, by = bound_ms(nbytes, live_slots * b * 2 + n * b)
+    sb = scores.to(torch.bfloat16)
+    bf_err = bf16_close(probe_push(eg.in_nbrs, sb, w, excl, prune_thresh=thr),
+                        probe_push_ref(eg.in_nbrs, sb, w, excl, thr))
+    log(f"probe_push full [{n}x{k}] B={b} thr={thr}: max_abs_err={err:.3e} "
+        f"(bf16 {bf_err:.3e}), kernel {ms:.4f} ms, plain {p_ms:.1f} ms, bound "
+        f"{bound:.4f} ms ({by}); no single PyTorch call computes it")
+    return dict(
+        name="probe_push", route="cuda",
+        source="src/repro_torch/kernels/csrc/probe_push.cu",
+        replaces="src/repro/kernels/probe_push/probe_push.py:22",
+        max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+        library_ms=None,
+    )
+
+
+def flash_phase(gen, dev) -> dict:
+    """flash_attention at the LM prefill shape (B 1, S = T 32,768, 32 heads,
+    8 kv heads, dh 64, bf16, causal): kernel against the plain version
+    (chunked queries), timings, and the library call as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S, H, Hkv, dh = FLASH_SHAPE
+    q, k, v = flash_inputs(gen, dev, B, S, S, H, Hkv, dh, torch.bfloat16)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    out = flash_attention(q, k, v, causal=True)
+    p_ms, ref = plain_ms(lambda: attention_ref(q, k, v, causal=True))
+    err = bf16_close(out, ref)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    lib_err = float((library().float() - ref.float()).abs().max())
+    lib_ms = time_ms(library, 5)
+    pairs = B * H * S * (S + 1) / 2
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    bound, by = bound_ms(nbytes, pairs * 4 * dh, PEAK_BF16_FLOPS)
+    log(f"flash_attention B={B} S=T={S} H={H} Hkv={Hkv} dh={dh} bf16 causal: "
+        f"max_abs_err={err:.3e}, kernel {ms:.3f} ms "
+        f"({pairs * 4 * dh / ms / 1e9:.1f} TFLOP/s), plain (chunked) {p_ms:.1f} ms, "
+        f"scaled_dot_product_attention {lib_ms:.3f} ms (max |diff| {lib_err:.3e}), "
+        f"bound {bound:.3f} ms ({by})")
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:27",
+        max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+        library_ms=lib_ms,
+    )
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the main path at real size
+# Phase 3: the SimRank path at real size
 # ---------------------------------------------------------------------------
 
 
@@ -352,7 +533,9 @@ def main_path(h, params) -> dict:
 
     from repro_torch.api import SimRankSession
     from repro_torch.core import single_source
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.probe_push.ops import probe_push
     from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
 
     deg = h.eg.in_deg.cpu().numpy()
@@ -362,8 +545,8 @@ def main_path(h, params) -> dict:
     n_r = sess.params.n_r
 
     # the main path, with every launch counter read around it
-    lane_probe_level.launches = 0
-    spmm_ell_padded.launches = 0
+    for fn in (lane_probe_level, spmm_ell_padded, probe_push, flash_attention):
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tickets = [sess.submit(u) for u in nodes]
@@ -377,7 +560,9 @@ def main_path(h, params) -> dict:
     torch.cuda.synchronize()
     tree_s = time.perf_counter() - t0
     launches = {"lane_probe": lane_probe_level.launches,
-                "spmm_ell": spmm_ell_padded.launches}
+                "spmm_ell": spmm_ell_padded.launches,
+                "probe_push": probe_push.launches,
+                "flash_attention": flash_attention.launches}
     batches = sess.stats.steps
     log(f"main path: {len(envs)} top-k queries in {batches} batches, "
         f"{drain_s:.3f} s ({len(envs) / drain_s:.2f} queries/s, "
@@ -428,22 +613,18 @@ def main_path(h, params) -> dict:
     return launches, nodes
 
 
-def profile_batch(h, nodes) -> None:
-    """Device time by kernel over one more drained batch of 8 (a new seed),
-    from torch.profiler; the busy share is the kernels' summed device time
-    over the batch's wall time (one stream, so kernels do not overlap)."""
+def profile(label: str, fn) -> None:
+    """Device time by kernel over one call of ``fn``, from torch.profiler;
+    the busy share is the kernels' summed device time over the call's wall
+    time (one stream, so kernels do not overlap)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
 
-    from repro_torch.api import SimRankSession
-
-    sess = SimRankSession(h, walk_chunk=256, batch_q=8, seed=1, own_graph=False)
-    for u in nodes[:8]:
-        sess.submit(u)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.drain()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [
@@ -454,11 +635,21 @@ def profile_batch(h, nodes) -> None:
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    log(f"profiled drain of 8 queries: wall {wall_ms:.1f} ms (profiler on), "
+    log(f"profiled {label}: wall {wall_ms:.1f} ms (profiler on), "
         f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), "
         f"{len(rows)} kernel names")
     for key, ms, count in rows[:6]:
         log(f"  {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def profile_batch(h, nodes) -> None:
+    """One more drained batch of 8 (a new seed) under the profiler."""
+    from repro_torch.api import SimRankSession
+
+    sess = SimRankSession(h, walk_chunk=256, batch_q=8, seed=1, own_graph=False)
+    for u in nodes[:8]:
+        sess.submit(u)
+    profile("drain of 8 queries", sess.drain)
 
 
 def toy_accuracy(dev) -> None:
@@ -482,6 +673,156 @@ def toy_accuracy(dev) -> None:
     require(err <= bound, f"toy: max error {err} > bound {bound}")
     require(np.isfinite(env.scores).all(), "toy scores not finite")
     log(f"toy graph (c=0.25): max |estimate - Table 2| = {err:.4f} <= {bound:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the LM path at full width
+# ---------------------------------------------------------------------------
+
+
+def logits_agree(out, ref, what: str) -> tuple[float, float]:
+    """bf16-compute logits: max |out - ref| <= LM_TOL * max(1, max |ref|).
+    Returns that difference and the share of rows whose argmax agrees."""
+    o, r = out.float(), ref.float()
+    scale = max(1.0, float(r.abs().max()))
+    err = float((o - r).abs().max())
+    require(err <= LM_TOL * scale, f"{what}: logits differ by {err} (scale {scale})")
+    return err, float((o.argmax(dim=-1) == r.argmax(dim=-1)).float().mean())
+
+
+def cut(shape, **dims):
+    from repro_torch.configs import ShapeSpec
+
+    return ShapeSpec(shape.name, shape.kind, {**shape.dims, **dims})
+
+
+def lm_phase(dev) -> int:
+    """Llama-3.2-1B at full width through ``repro_torch.arch``; returns the
+    flash launches of the LM path's window (one prefill + 16 decode steps)."""
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.probe_push.ops import probe_push
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
+    from repro_torch.models.transformer import model as M
+
+    cfg = get_config("llama3.2-1b")
+    shapes = {s.name: s for s in shapes_for("llama3.2-1b")}
+    pre = arch.build_with_cfg("llama3.2-1b", cfg,
+                              cut(shapes["prefill_32k"], global_batch=1), device=dev)
+    pre_off = arch.build_with_cfg("llama3.2-1b", cfg, pre.shape, use_kernel=False,
+                                  device=dev)
+    dec = arch.build_with_cfg("llama3.2-1b", cfg,
+                              cut(shapes["decode_32k"], global_batch=8), device=dev)
+    S = pre.shape.dims["seq_len"]
+    Bd, Sd = dec.shape.dims["global_batch"], dec.shape.dims["seq_len"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model, caches = dec.init(gen)
+    cache_gb = sum(c["k"].numel() + c["v"].numel() for c in caches) * 2 / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    n_norms = (2 * cfg.n_layers + 1) * cfg.d_model  # not in params_dense
+    require(n_params == cfg.params_dense + n_norms,
+            f"{n_params} params, config says {cfg.params_dense} + {n_norms} norms")
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    first = torch.randint(0, cfg.vocab, (Bd,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    log(f"llama3.2-1b: {n_params} params (bf16), decode cache {Bd} x {Sd} x "
+        f"{cfg.n_layers} layers = {cache_gb:.2f} GB; prefill 1 x {S} tokens")
+    with torch.inference_mode():
+        pre.step(model, dict(tokens=tokens[:, :1024]))  # warm the libraries
+        torch.cuda.synchronize()
+
+        # --- the LM path, with every launch counter read around it --------
+        for fn in (flash_attention, lane_probe_level, spmm_ell_padded, probe_push):
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = pre.step(model, dict(tokens=tokens))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = flash_attention.launches
+        prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+        tok = first
+        step_s = []
+        for t in range(16):
+            pos = torch.full((Bd,), t, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            caches, dlog = dec.step(model, caches, dict(tokens=tok, positions=pos))
+            tok = dlog.argmax(dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            require(bool(torch.isfinite(dlog).all()), f"decode step {t} logits")
+        launches = {"flash_attention": flash_attention.launches,
+                    "lane_probe": lane_probe_level.launches,
+                    "spmm_ell": spmm_ell_padded.launches,
+                    "probe_push": probe_push.launches}
+        decode_peak = torch.cuda.max_memory_allocated() / 1e9
+        # -------------------------------------------------------------------
+
+        require(logits.shape == (1, cfg.vocab) and logits.dtype == torch.float32,
+                f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+        require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        require(prefill_launches == cfg.n_layers,
+                f"prefill launched flash {prefill_launches} times, "
+                f"want one per layer ({cfg.n_layers})")
+        require(launches["flash_attention"] == cfg.n_layers,
+                f"decode launched the flash kernel: {launches}")
+        require(caches[0]["k"][:, :, 16:].abs().max() == 0
+                and caches[0]["k"][:, :, :16].abs().amax(dim=(1, 3, 4)).min() > 0,
+                "decode wrote the cache outside positions 0..15")
+        dec_ms = sum(step_s[1:]) / len(step_s[1:]) * 1e3
+        log(f"LM path: prefill {S} tokens in {prefill_s:.3f} s "
+            f"({S / prefill_s:.1f} tokens/s), peak {prefill_peak:.2f} GB; "
+            f"decode B={Bd} over the {Sd} cache: {dec_ms:.2f} ms per step "
+            f"(steps 2-16; step 1 {step_s[0] * 1e3:.2f} ms), "
+            f"{Bd / dec_ms * 1e3:.1f} tokens/s, peak {decode_peak:.2f} GB; "
+            f"launches {launches}")
+
+        # where the time goes: one prefill and one decode step (position 16)
+        profile(f"prefill of {S} tokens", lambda: pre.step(model, dict(tokens=tokens)))
+        pos = torch.full((Bd,), 16, dtype=torch.int32, device=dev)
+        profile("decode step", lambda: dec.step(model, caches, dict(tokens=tok,
+                                                                     positions=pos)))
+
+        # --- kernel off: the plain chunked sdpa on the same tokens ---------
+        p_ms, off = plain_ms(lambda: pre_off.step(model, dict(tokens=tokens)))
+        err, _ = logits_agree(logits, off, "prefill kernel-on vs kernel-off")
+        require(int(logits.argmax()) == int(off.argmax()),
+                "prefill kernel-on and kernel-off pick different next tokens")
+        log(f"prefill kernel-off (chunked sdpa) {p_ms / 1e3:.3f} s; on vs off: "
+            f"max |diff| {err:.3e} (max |logit| {float(off.abs().max()):.3f}), "
+            f"argmax {int(logits.argmax())} vs {int(off.argmax())}")
+        del off, caches
+        torch.cuda.empty_cache()
+
+        # --- 64 teacher-forced decode steps against the kernel-on forward ---
+        B2, T2 = 2, 64
+        toks = torch.randint(0, cfg.vocab, (B2, T2), generator=gen, device=dev,
+                             dtype=torch.int32)
+        small = M.init_cache(cfg, B2, T2, dev)
+        steps = []
+        for t in range(T2):
+            pos = torch.full((B2,), t, dtype=torch.int32, device=dev)
+            small, lg = M.lm_decode_step(model, small, toks[:, t], pos, cfg)
+            steps.append(lg)
+        before = flash_attention.launches
+        fwd, _ = M.lm_forward(model, toks, cfg, use_kernel=True)
+        require(flash_attention.launches == before + cfg.n_layers,
+                "forward did not run the flash kernel")
+        err, same = logits_agree(torch.stack(steps, dim=1), fwd, "decode vs forward")
+        log(f"decode vs forward ({B2} x {T2} teacher-forced steps): max |diff| "
+            f"{err:.3e} (max |logit| {float(fwd.abs().max()):.3f}), argmax "
+            f"equal at {same:.1%} of positions")
+    del model, small
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -521,8 +862,12 @@ def main() -> int:
     gen.manual_seed(0)
     small_lane_cases(gen, dev)
     small_spmm_cases(gen, dev)
+    small_probe_push_cases(gen, dev)
+    small_flash_cases(gen, dev)
     torch.cuda.synchronize()
-    log("small kernel cases: ok (lane_probe fp32/bf16, spmm_ell fp32/fp16/bf16)")
+    log("small kernel cases: ok (lane_probe fp32/bf16, spmm_ell fp32/fp16/bf16, "
+        "probe_push fp32/bf16, flash_attention fp32/bf16)")
+    rows = {"flash_attention": flash_phase(gen, dev)}
 
     t0 = time.perf_counter()
     src, dst, n = paper_dataset("hepph", 1.0)
@@ -532,13 +877,19 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     params = make_params(n)  # the session's defaults: c = 0.6, eps_a = 0.1
     require((params.n_r, params.max_len) == (10840, 12), f"params {params}")
-    rows = kernel_phase(h, params, gen)
+    rows.update(kernel_phase(h, params, gen))
+    rows["probe_push"] = probe_push_phase(h, params, gen)
     launches, nodes = main_path(h, params)
     profile_batch(h, nodes)
     toy_accuracy(dev)
+    del h
+    torch.cuda.empty_cache()
+    lm_launches = lm_phase(dev)
 
+    # each kernel's launches in the window of the path that runs it; probe_push
+    # is on no path (the reference calls it only from its tests)
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        row["launches"] = launches[name] + lm_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

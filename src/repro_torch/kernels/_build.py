@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("lane_probe", "spmm_ell")
+KERNELS = ("lane_probe", "spmm_ell", "probe_push", "flash_attention")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -102,11 +102,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(lib: ctypes.CDLL, symbol: str, n_ptrs: int, n_ints: int):
-    """Declare ``int symbol(void* x n_ptrs, int x n_ints, void* stream)``."""
+def bind(lib: ctypes.CDLL, symbol: str, n_ptrs: int, n_ints: int,
+         n_floats: int = 0):
+    """Declare ``int symbol(void* x n_ptrs, int x n_ints, float x n_floats,
+    void* stream)``."""
     fn = getattr(lib, symbol)
     fn.argtypes = (
-        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+        + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn

@@ -1,0 +1,97 @@
+"""Public op: flash attention in the model's ``[B, S, H, dh]`` layout.
+
+Given CUDA tensors ``flash_attention`` launches ``csrc/flash_attention.cu``
+(which replaces the Pallas kernel
+``src/repro/kernels/flash_attention/flash_attention.py``, ``_kernel``) or
+raises; given CPU tensors it runs the plain version (``ref.py``).  The
+kernel takes any S and T and any head width up to ``MAX_HEAD_DIM``; the
+reference wrapper's tile conditions (``S % bq``, ``T % bk``, ``dh % 8``)
+do not apply.  Causal attention needs S == T (the mask is ``row >= col``
+with no offset), as in the Pallas kernel.  Storage is float32 or bfloat16;
+softmax and accumulation are fp32.  ``flash_attention.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+Tensor = torch.Tensor
+
+MAX_HEAD_DIM = 128
+_SYMBOLS = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+_fns: dict = {}
+
+
+def _kernel(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = _build.bind(_build.load("flash_attention"), _SYMBOLS[dtype], 4, 7,
+                         n_floats=1)
+        _fns[dtype] = fn
+    return fn
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> None:
+    if q.dtype not in _SYMBOLS:
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be [B, S|T, H, dh]")
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != q.dtype or tuple(x.shape) != (B, T, Hkv, dh):
+            raise ValueError(
+                f"flash_attention: {name} must be {q.dtype} {(B, T, Hkv, dh)} on "
+                f"{q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    if T == 0:
+        raise ValueError("flash_attention: no keys (T = 0)")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_attention: H = {H} is not a multiple of Hkv = {Hkv}")
+    if not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head width {dh} not in [1, {MAX_HEAD_DIM}]")
+    if causal and S != T:
+        raise ValueError(f"flash_attention: causal needs S == T, got {S} != {T}")
+    if max(B, H) > 65535:
+        raise ValueError("flash_attention: B and H must be at most 65535")
+
+
+def flash_attention(
+    q: Tensor,  # [B, S, H, dh]
+    k: Tensor,  # [B, T, Hkv, dh]
+    v: Tensor,  # [B, T, Hkv, dh]
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> Tensor:
+    """softmax(q k^T * scale [+ causal mask]) v per head; output [B, S, H, dh]
+    in q's dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _check(q, k, v, causal)
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _kernel(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, T, H, Hkv, dh, int(bool(causal)), float(scale), stream,
+    )
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

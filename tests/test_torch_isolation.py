@@ -25,6 +25,15 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.lane_probe.ops" in mods
     assert "repro_torch.api.session" in mods
+    for new in ("repro_torch.arch", "repro_torch.configs.base",
+                "repro_torch.configs.llama3_2_1b", "repro_torch.models.common",
+                "repro_torch.models.transformer.attention",
+                "repro_torch.models.transformer.model",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.kernels.probe_push.ops",
+                "repro_torch.kernels.probe_push.ref"):
+        assert new in mods, new
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

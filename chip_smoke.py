@@ -8,14 +8,19 @@ Phases (any failure exits non-zero before the result line):
 1. the card's name and power limit; build the four CUDA kernels with nvcc,
    one process per source, all at once;
 2. each kernel against its plain PyTorch version on the card: small edge
-   cases, then the shapes of the paths below, with timings (kernel, plain
-   version, bound, library call): lane_probe, spmm_ell and probe_push on the
-   HepPh ELL table, flash_attention at Llama-3.2-1B's 32k prefill shape;
+   cases (for lane_probe and spmm_ell also live-first tables with empty
+   rows, a hub row over several chunks and cut row extents), then the
+   shapes of the paths below, with timings (kernel, plain version, bound,
+   library call): the live-prefix rule and the chunk plan of the HepPh ELL
+   table, lane_probe (hub and no-hub slices, full table), spmm_ell and
+   probe_push on that table, flash_attention at Llama-3.2-1B's 32k prefill
+   shape;
 3. the SimRank path at real size: 16 top-k queries on the HepPh stand-in
    (``paper_dataset("hepph", 1.0)``) submitted to ``SimRankSession`` and
    drained in batches of 8, then one ``single_source(variant="tree")`` on
-   the ELL table — with the launch counters read around that window; then
-   serial and kernel-off runs under the same seeds must agree;
+   the ELL table — with the launch and plan-build counters read around
+   that window; then serial and kernel-off runs under the same seeds must
+   agree, and one more drained batch is profiled;
 4. accuracy: node a of the paper's toy graph at c = 0.25 within the
    Thm-1/2 bound of the paper's Table 2;
 5. the LM path at Llama-3.2-1B's full width (random bf16 weights from a
@@ -30,6 +35,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -96,19 +102,31 @@ def bf16_close(out, ref) -> float:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events, warmed)."""
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events, warmed).  A spin kernel holds the stream while the host queues
+    the calls, so a kernel faster than its wrapper's host work is timed on
+    the device and not at the host's enqueue rate; the spin is lengthened
+    until it outlasts the enqueue."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 20_000_000
+    for _ in range(6):
+        events[0].record()
+        torch.cuda._sleep(cycles)
+        events[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        events[2].record()
+        torch.cuda.synchronize()
+        if events[0].elapsed_time(events[1]) > host_ms:
+            break
+        cycles *= 4
+    return events[1].elapsed_time(events[2]) / reps
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -151,21 +169,54 @@ def lane_inputs(gen, nbrs, table_rows, w, *, dtype, n_live, row0=0):
     )
 
 
-def check_lane(args, *, row0=0, tab0=0, n_live, prune):
+def full_len(nbrs):
+    """row_len reading every slot (for random tables with sentinels anywhere)."""
+    import torch
+
+    return torch.full((nbrs.shape[0],), nbrs.shape[1], dtype=torch.int32,
+                      device=nbrs.device)
+
+
+def live_first(gen, dev, n, k, lens):
+    """An [n, k] ELL table whose row v holds lens[v] random live ids first."""
+    import torch
+
+    deg = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    ids = torch.randint(0, n, (n, k), generator=gen, device=dev).int()
+    keep = torch.arange(k, device=dev)[None, :] < deg[:, None]
+    return torch.where(keep, ids, torch.full_like(ids, n)), deg
+
+
+def check_lane(args, *, row_len=None, row0=0, tab0=0, n_live, prune):
     import torch
 
     from repro_torch.kernels.lane_probe.ops import lane_probe_level
     from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
 
-    kw = dict(row0=row0, tab0=tab0, n_live=n_live, prune=prune)
+    row_len = full_len(args["nbrs"]) if row_len is None else row_len
+    kw = dict(row0=row0, tab0=tab0, n_live=n_live, prune=prune, row_len=row_len)
     out, tot = lane_probe_level(**args, **kw)
     ref_out, ref_tot = lane_probe_level_ref(**args, **kw)
     cmp = fp32_err if args["table"].dtype == torch.float32 else bf16_close
     return max(cmp(out, ref_out), cmp(tot, ref_tot)), out
 
 
+@contextlib.contextmanager
+def chunk_slots(c: int):
+    """Plans of ``c``-slot chunks inside the block."""
+    from repro_torch.kernels import ell_plan
+
+    old, ell_plan.CHUNK_SLOTS = ell_plan.CHUNK_SLOTS, c
+    try:
+        yield
+    finally:
+        ell_plan.CHUNK_SLOTS = old
+
+
 def small_lane_cases(gen, dev) -> None:
     import torch
+
+    from repro_torch.kernels.ell_plan import CHUNK_SLOTS
 
     for dtype in (torch.float32, torch.bfloat16):
         for n, w in ((50, 24), (30, 37), (130, 24), (7, 300)):
@@ -199,30 +250,102 @@ def small_lane_cases(gen, dev) -> None:
                    row0=40, tab0=40, n_live=120, prune=True)
         check_lane(lane_inputs(gen, nb, 40, 16, dtype=dtype, n_live=120, row0=80),
                    row0=80, tab0=0, n_live=120, prune=False)
+        # live slots first: empty rows, rows of C and C + 1 slots, a hub row
+        # over several pieces, a cut extent, small chunks; W of 1 to 257
+        n, k, c = 1500, 1400, CHUNK_SLOTS
+        lens = torch.randint(0, 6, (n,), generator=gen, device=dev).tolist()
+        lens[3] = lens[9] = 0
+        lens[10], lens[11], lens[700], lens[701] = c, c + 1, k, 2 * c + 3
+        nbrs, deg = live_first(gen, dev, n, k, lens)
+        for w in (1, 63, 64, 256, 257):
+            a = lane_inputs(gen, nbrs, n + 1, w, dtype=dtype, n_live=n)
+            check_lane(a, row_len=deg, n_live=n, prune=True)
+            check_lane(a, row_len=deg // 2, n_live=n, prune=False)
+            with chunk_slots(64):
+                check_lane(a, row_len=deg, n_live=n, prune=True)
 
 
 def small_spmm_cases(gen, dev) -> None:
     import torch
 
-    from repro_torch.kernels.spmm_ell.ops import spmm_ell
-    from repro_torch.kernels.spmm_ell.ref import spmm_ell_ref
+    from repro_torch.kernels.ell_plan import CHUNK_SLOTS
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell, spmm_ell_padded
+    from repro_torch.kernels.spmm_ell.ref import spmm_ell_padded_ref, spmm_ell_ref
 
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        cmp = fp32_err if dtype == torch.float32 else bf16_close
         for n, k, b in ((128, 4, 8), (100, 3, 8), (384, 16, 32), (33, 7, 300)):
             nbrs = torch.randint(0, n + 1, (n, k), generator=gen, device=dev).int()
             scores = torch.randn((n, b), generator=gen, device=dev).to(dtype)
             w = torch.rand(n, generator=gen, device=dev) + 0.1
-            out, ref = spmm_ell(nbrs, scores, w), spmm_ell_ref(nbrs, scores, w)
-            (fp32_err if dtype == torch.float32 else bf16_close)(out, ref)
+            full = full_len(nbrs)
+            cmp(spmm_ell(nbrs, scores, w, row_len=full),
+                spmm_ell_ref(nbrs, scores, w, row_len=full))
         vec = torch.randn(n, generator=gen, device=dev).to(dtype)
-        (fp32_err if dtype == torch.float32 else bf16_close)(
-            spmm_ell(nbrs, vec, w), spmm_ell_ref(nbrs, vec, w))
+        cmp(spmm_ell(nbrs, vec, w, row_len=full),
+            spmm_ell_ref(nbrs, vec, w, row_len=full))
+        n, k, c = 1500, 1400, CHUNK_SLOTS
+        lens = torch.randint(0, 6, (n,), generator=gen, device=dev).tolist()
+        lens[3] = lens[9] = 0
+        lens[10], lens[11], lens[700], lens[701] = c, c + 1, k, 2 * c + 3
+        nbrs, deg = live_first(gen, dev, n, k, lens)
+        w = torch.rand(n, generator=gen, device=dev) + 0.1
+        for b in (1, 63, 64, 257):
+            scores = torch.randn((n + 1, b), generator=gen, device=dev).to(dtype)
+            scores[n] = 0
+            for lens_, c in ((deg, CHUNK_SLOTS), (deg // 3, CHUNK_SLOTS),
+                             (deg, 64)):
+                with chunk_slots(c):
+                    cmp(spmm_ell_padded(nbrs, scores, w, row_len=lens_),
+                        spmm_ell_padded_ref(nbrs, scores, w, row_len=lens_))
+
+
+def lane_bound(nbrs, row_len, n_live, w, fin, *, tot_inplace=False):
+    """Least bytes and operations of one lane_probe level over these rows
+    with this run's data: each live id read once, each distinct gathered
+    table row read once in the unfinished columns, dep read in the finished
+    columns, total read, out and tot written, the [W] vectors and row_len /
+    weights read once.  Returns (bound_ms, by, bytes)."""
+    import torch
+
+    r = nbrs.shape[0]
+    live_mask = (torch.arange(nbrs.shape[1], device=nbrs.device)[None, :]
+                 < row_len[:, None]) & (nbrs < n_live)
+    ids = nbrs[live_mask]
+    live = int(ids.numel())
+    distinct = int(torch.unique(ids).numel())
+    n_fin = int(fin.sum())
+    w_open = w - n_fin
+    nbytes = (live * 4 + r * 8 + distinct * w_open * 4 + r * n_fin * 4
+              + (r * w * 4) * (1 if tot_inplace else 3) + 4 * w * 4)
+    ops = live * w_open * 4 + r * w * 2
+    t, by = bound_ms(nbytes, ops)
+    return t, by, nbytes
+
+
+def spmm_bound(nbrs, row_len, n, b):
+    """Least bytes and operations of one spmm_ell call: live ids, each
+    distinct gathered score row once, row_len / weights, the [R, B] output."""
+    import torch
+
+    r = nbrs.shape[0]
+    live_mask = (torch.arange(nbrs.shape[1], device=nbrs.device)[None, :]
+                 < row_len[:, None]) & (nbrs < n)
+    ids = nbrs[live_mask]
+    live = int(ids.numel())
+    distinct = int(torch.unique(ids).numel())
+    nbytes = live * 4 + r * 8 + distinct * b * 4 + r * b * 4
+    t, by = bound_ms(nbytes, live * b + r * b)
+    return t, by, nbytes
 
 
 def kernel_phase(h, params, gen) -> dict:
-    """Slice and full-shape comparisons plus timings; returns the kernel rows."""
+    """The live-prefix check, the chunk plan, slice and full-shape
+    comparisons plus timings; returns the kernel rows."""
     import torch
 
+    from repro_torch.graph import check_live_prefix
+    from repro_torch.kernels.ell_plan import clear_plans, plan_of
     from repro_torch.kernels.lane_probe.ops import lane_probe_level
     from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
     from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
@@ -240,39 +363,65 @@ def kernel_phase(h, params, gen) -> dict:
         f"({eg.in_nbrs.numel() * 4 / 1e9:.3f} GB int32); slice rows "
         f"[{s0}, {s0 + SLICE_ROWS}) holds the hub row {hub} "
         f"(in-degree {int(deg[hub])})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check_live_prefix(eg.in_nbrs, deg, n)
+    log(f"live-prefix rule holds on the hepph table (nbrs[v, k] < n exactly "
+        f"when k < in_deg[v]): checked on the card in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    clear_plans()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = plan_of(deg, k)  # the plan the wrappers find for row_len = deg
+    torch.cuda.synchronize()
+    log(f"chunk plan of the {n} rows: {plan.n_chunks} chunks ({plan.n_pieces} "
+        f"pieces of {plan.n_long} long rows, {plan.n_chunks - plan.n_pieces} "
+        f"packed), chunk_slots={plan.chunk_slots}, at most {plan.max_slots} "
+        f"ids / {plan.max_rows} rows a chunk; built in "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
 
     # --- lane_probe: slice with row0 = tab0 = slice start, fp32 and bf16,
     # the main path's push weights (sqrt(c) / in-degree) ---------------------
     w_push = eg.inv_in_deg * params.sqrt_c
     w_rows = w_push[s0 : s0 + SLICE_ROWS].contiguous()
+    d_rows = deg[s0 : s0 + SLICE_ROWS]
     for dtype in (torch.float32, torch.bfloat16):
         for prune in (False, True):
             a = lane_inputs(gen, rows, n + 1, w_lanes, dtype=dtype, n_live=n,
                             row0=s0)
             a["weights"] = w_rows
-            err, _ = check_lane(a, row0=s0, tab0=s0, n_live=n, prune=prune)
+            err, _ = check_lane(a, row_len=d_rows, row0=s0, tab0=s0, n_live=n,
+                                prune=prune)
             log(f"lane_probe slice {dtype} prune={prune}: max_abs_err={err:.3e}")
     # where a level's time goes: the slice holding the hub row vs one without
     s1 = (s0 + n // 2) % (n - SLICE_ROWS)
     if s1 <= hub < s1 + SLICE_ROWS:
         s1 = (s1 + SLICE_ROWS) % (n - SLICE_ROWS)
+    slice_ms = {}
     for name, lo in (("with the hub row", s0), ("without it", s1)):
         a = lane_inputs(gen, eg.in_nbrs[lo : lo + SLICE_ROWS], n + 1, w_lanes,
                         dtype=torch.float32, n_live=n, row0=lo)
         a["weights"] = w_push[lo : lo + SLICE_ROWS].contiguous()
-        ms = time_ms(lambda: lane_probe_level(**a, row0=lo, tab0=lo, n_live=n,
-                                              prune=True), 10)
+        lens = deg[lo : lo + SLICE_ROWS]
+        sp = plan_of(lens, k)
+        ms = time_ms(lambda: lane_probe_level(**a, row_len=lens, row0=lo,
+                                              tab0=lo, n_live=n, prune=True), 20)
+        slice_ms[name] = ms
         live = int((a["nbrs"] < n).sum())
+        new_b, _, _ = lane_bound(a["nbrs"], lens, n, w_lanes, a["fin"])
         log(f"lane_probe {SLICE_ROWS}-row slice [{lo}, {lo + SLICE_ROWS}) "
-            f"{name}: {ms:.4f} ms, {live} live slots, bound "
+            f"{name}: {ms:.4f} ms, {live} live slots in {sp.n_chunks} chunks, "
+            f"live-slot bound {new_b:.4f} ms, full-scan bound "
             f"{bound_ms(SLICE_ROWS * k * 4, 0)[0]:.4f} ms")
+    log(f"lane_probe hub slice / no-hub slice: "
+        f"{slice_ms['with the hub row'] / slice_ms['without it']:.2f}x")
 
     # --- lane_probe at the main path's shape: R = n, T = n + 1, W = 256 ---
     full = lane_inputs(gen, eg.in_nbrs, n + 1, w_lanes, dtype=torch.float32,
                        n_live=n)
     full["weights"] = w_push
-    kw = dict(row0=0, tab0=0, n_live=n, prune=True)
-    lane_ms = time_ms(lambda: lane_probe_level(**full, **kw), 10)
+    kw = dict(row0=0, tab0=0, n_live=n, prune=True, row_len=deg)
+    lane_ms = time_ms(lambda: lane_probe_level(**full, **kw), 20)
     out, tot = lane_probe_level(**full, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -280,35 +429,53 @@ def kernel_phase(h, params, gen) -> dict:
     torch.cuda.synchronize()
     lane_plain_ms = (time.perf_counter() - t0) * 1e3
     lane_err = max(fp32_err(out, ref_out), fp32_err(tot, ref_tot))
-    fin_frac = float(full["fin"].float().mean())
-    lane_bytes = (n * k * 4 + n * 4 + (n + 1) * w_lanes * 4 + 4 * n * w_lanes * 4
-                  + 4 * w_lanes * 4)
-    lane_ops = live_slots * w_lanes * (1.0 - fin_frac) * 4 + n * w_lanes * 2
-    lane_bound, lane_by = bound_ms(lane_bytes, lane_ops)
-    log(f"lane_probe full [{n}x{k}] W={w_lanes}: max_abs_err={lane_err:.3e} "
-        f"kernel {lane_ms:.4f} ms, plain {lane_plain_ms:.1f} ms, "
-        f"bound {lane_bound:.4f} ms ({lane_by})")
+    again = lane_probe_level(**full, **kw)
+    require(torch.equal(again[0], out) and torch.equal(again[1], tot),
+            "lane_probe: two runs on the same inputs differ in their bits")
+    # the serve path's form: tot written into total in place, out into a
+    # second buffer
+    total = full["total"].clone()
+    buf = torch.empty_like(full["dep"])
+    inplace_ms = time_ms(lambda: lane_probe_level(
+        **dict(full, total=total), **kw, out=buf, tot=total), 20)
+    lane_bound_ms, lane_by, lane_bytes = lane_bound(eg.in_nbrs, deg, n, w_lanes,
+                                                    full["fin"])
+    ip_bound, _, _ = lane_bound(eg.in_nbrs, deg, n, w_lanes, full["fin"],
+                                tot_inplace=True)
+    old_bytes = (n * k * 4 + n * 4 + (n + 1) * w_lanes * 4 + 4 * n * w_lanes * 4
+                 + 4 * w_lanes * 4)
+    log(f"lane_probe full [{n}x{k}] W={w_lanes} fin={float(full['fin'].float().mean()):.2f}: "
+        f"max_abs_err={lane_err:.3e} kernel {lane_ms:.4f} ms (in place "
+        f"{inplace_ms:.4f} ms, its bound {ip_bound:.4f} ms), plain "
+        f"{lane_plain_ms:.1f} ms, live-slot bound {lane_bound_ms:.4f} ms "
+        f"({lane_by}, {lane_bytes / 1e6:.1f} MB), full-scan bound "
+        f"{bound_ms(old_bytes, 0)[0]:.4f} ms; bits equal on a second run")
 
     # --- spmm_ell: slice at B = 64, then the full table ---------------------
     b = 64
     scores = torch.rand((n + 1, b), generator=gen, device=eg.device)
     scores[n] = 0.0
-    out = spmm_ell_padded(rows, scores, w_rows)
-    ref = spmm_ell_padded_ref(rows, scores, w_rows)
+    out = spmm_ell_padded(rows, scores, w_rows, row_len=d_rows)
+    ref = spmm_ell_padded_ref(rows, scores, w_rows, row_len=d_rows)
     log(f"spmm_ell slice fp32 B={b}: max_abs_err={fp32_err(out, ref):.3e}")
     sb = scores.to(torch.bfloat16)
-    out = spmm_ell_padded(rows, sb, w_rows)
-    ref = spmm_ell_padded_ref(rows, sb, w_rows)
+    out = spmm_ell_padded(rows, sb, w_rows, row_len=d_rows)
+    ref = spmm_ell_padded_ref(rows, sb, w_rows, row_len=d_rows)
     log(f"spmm_ell slice bf16 B={b}: max_abs_err={bf16_close(out, ref):.3e}")
 
-    spmm_ms = time_ms(lambda: spmm_ell_padded(eg.in_nbrs, scores, w_push), 10)
-    out = spmm_ell_padded(eg.in_nbrs, scores, w_push)
+    def spmm():
+        return spmm_ell_padded(eg.in_nbrs, scores, w_push, row_len=deg)
+
+    spmm_ms = time_ms(spmm, 20)
+    out = spmm()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = spmm_ell_padded_ref(eg.in_nbrs, scores, w_push)
+    ref = spmm_ell_padded_ref(eg.in_nbrs, scores, w_push, row_len=deg)
     torch.cuda.synchronize()
     spmm_plain_ms = (time.perf_counter() - t0) * 1e3
     spmm_err = fp32_err(out, ref)
+    require(torch.equal(spmm(), out),
+            "spmm_ell: two runs on the same inputs differ in their bits")
     # library yardstick: one CSR sparse-dense product on the same operands
     live = eg.in_nbrs < n
     crow = torch.zeros(n + 1, dtype=torch.int64, device=eg.device)
@@ -318,13 +485,15 @@ def kernel_phase(h, params, gen) -> dict:
     csr = torch.sparse_csr_tensor(crow, colx, vals, size=(n, n + 1))
     del live
     fp32_err(torch.sparse.mm(csr, scores), out)
-    lib_ms = time_ms(lambda: torch.sparse.mm(csr, scores), 10)
-    spmm_bytes = n * k * 4 + (n + 1) * b * 4 + n * 4 + n * b * 4
-    spmm_bound, spmm_by = bound_ms(spmm_bytes, live_slots * b + n * b)
+    lib_ms = time_ms(lambda: torch.sparse.mm(csr, scores), 20)
+    spmm_bound_ms, spmm_by, spmm_bytes = spmm_bound(eg.in_nbrs, deg, n, b)
+    old_bytes = n * k * 4 + (n + 1) * b * 4 + n * 4 + n * b * 4
     log(f"spmm_ell full [{n}x{k}] B={b}: max_abs_err={spmm_err:.3e} "
         f"kernel {spmm_ms:.4f} ms, plain {spmm_plain_ms:.1f} ms, "
-        f"torch.sparse.mm {lib_ms:.4f} ms, bound {spmm_bound:.4f} ms ({spmm_by})")
-    del csr, full, scores, sb, out, ref, ref_out, ref_tot, tot
+        f"torch.sparse.mm {lib_ms:.4f} ms, live-slot bound {spmm_bound_ms:.4f} ms "
+        f"({spmm_by}, {spmm_bytes / 1e6:.2f} MB), full-scan bound "
+        f"{bound_ms(old_bytes, 0)[0]:.4f} ms; bits equal on a second run")
+    del csr, full, scores, sb, out, ref, ref_out, ref_tot, tot, total, buf
     torch.cuda.empty_cache()
     return {
         "lane_probe": dict(
@@ -332,14 +501,14 @@ def kernel_phase(h, params, gen) -> dict:
             source="src/repro_torch/kernels/csrc/lane_probe.cu",
             replaces="src/repro/kernels/lane_probe/lane_probe.py:57",
             max_abs_err=lane_err, ms=lane_ms, plain_ms=lane_plain_ms,
-            bound_ms=lane_bound, bound_by=lane_by, library_ms=None,
+            bound_ms=lane_bound_ms, bound_by=lane_by, library_ms=None,
         ),
         "spmm_ell": dict(
             name="spmm_ell", route="cuda",
             source="src/repro_torch/kernels/csrc/spmm_ell.cu",
             replaces="src/repro/kernels/spmm_ell/spmm_ell.py:31",
             max_abs_err=spmm_err, ms=spmm_ms, plain_ms=spmm_plain_ms,
-            bound_ms=spmm_bound, bound_by=spmm_by, library_ms=lib_ms,
+            bound_ms=spmm_bound_ms, bound_by=spmm_by, library_ms=lib_ms,
         ),
     }
 
@@ -533,6 +702,7 @@ def main_path(h, params) -> dict:
 
     from repro_torch.api import SimRankSession
     from repro_torch.core import single_source
+    from repro_torch.kernels.ell_plan import build_plan, clear_plans
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.lane_probe.ops import lane_probe_level
     from repro_torch.kernels.probe_push.ops import probe_push
@@ -544,15 +714,19 @@ def main_path(h, params) -> dict:
     sess = SimRankSession(h, walk_chunk=256, batch_q=8, seed=0)
     n_r = sess.params.n_r
 
-    # the main path, with every launch counter read around it
-    for fn in (lane_probe_level, spmm_ell_padded, probe_push, flash_attention):
-        fn.launches = 0
+    # the main path, with every launch counter read around it; no plan is
+    # kept from the kernel phase, so the drain's builds are its own
+    clear_plans()
+    for fn in (lane_probe_level, spmm_ell_padded, probe_push, flash_attention,
+               build_plan):
+        setattr(fn, "builds" if fn is build_plan else "launches", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tickets = [sess.submit(u) for u in nodes]
     envs = sess.drain()
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
+    drain_builds = build_plan.builds
     u_tree = nodes[0]
     t0 = time.perf_counter()
     tree = single_source(7, h.eg, h.eg, u_tree, sess.params, variant="tree",
@@ -567,9 +741,12 @@ def main_path(h, params) -> dict:
     log(f"main path: {len(envs)} top-k queries in {batches} batches, "
         f"{drain_s:.3f} s ({len(envs) / drain_s:.2f} queries/s, "
         f"{drain_s / batches * 1e3:.1f} ms per drained batch); "
-        f"tree single_source {tree_s:.3f} s; launches {launches}")
+        f"tree single_source {tree_s:.3f} s; launches {launches}; chunk plans "
+        f"built: {drain_builds} in the drain, {build_plan.builds} in the window")
     require(launches["lane_probe"] > 0 and launches["spmm_ell"] > 0,
             f"a kernel of the main path never launched: {launches}")
+    require(drain_builds <= batches,
+            f"{drain_builds} chunk plans built in {batches} drained batches")
 
     bound = sess.error_bound(n_r)
     for u, t, env in zip(nodes, tickets, envs):
@@ -601,6 +778,8 @@ def main_path(h, params) -> dict:
     torch.cuda.synchronize()
     off_s = time.perf_counter() - t0
     oerr = max(topk_agree(a, b, 1e-5) for a, b in zip(envs, off_envs))
+    log(f"drain of {len(nodes)} top-k queries: kernel path {drain_s:.3f} s, "
+        f"kernel-off (COO push) {off_s:.3f} s: {off_s / drain_s:.2f}x")
     # tree vs telescoped on one node: two estimates of the same SimRank
     tele = single_source(7, h.g, h.eg, u_tree, sess.params).cpu().numpy()
     terr = float(np.abs(tele - tree).max())
@@ -613,10 +792,11 @@ def main_path(h, params) -> dict:
     return launches, nodes
 
 
-def profile(label: str, fn) -> None:
+def profile(label: str, fn) -> dict:
     """Device time by kernel over one call of ``fn``, from torch.profiler;
     the busy share is the kernels' summed device time over the call's wall
-    time (one stream, so kernels do not overlap)."""
+    time (one stream, so kernels do not overlap).  Returns each kernel
+    name's launch count."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -640,6 +820,7 @@ def profile(label: str, fn) -> None:
         f"{len(rows)} kernel names")
     for key, ms, count in rows[:6]:
         log(f"  {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+    return {key: count for key, _, count in rows}
 
 
 def profile_batch(h, nodes) -> None:
@@ -649,7 +830,11 @@ def profile_batch(h, nodes) -> None:
     sess = SimRankSession(h, walk_chunk=256, batch_q=8, seed=1, own_graph=False)
     for u in nodes[:8]:
         sess.submit(u)
-    profile("drain of 8 queries", sess.drain)
+    counts = profile("drain of 8 queries", sess.drain)
+    levels = sum(c for k, c in counts.items() if "lane_probe_kernel" in k)
+    cats = sum(c for k, c in counts.items() if "CatArray" in k)
+    log(f"profiled drain: {levels} lane_probe levels, {cats} torch.cat launches")
+    require(cats < levels, f"{cats} torch.cat launches in {levels} levels")
 
 
 def toy_accuracy(dev) -> None:

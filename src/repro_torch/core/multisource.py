@@ -17,9 +17,10 @@
 * **epilogue** — per-query lane-block sum, 1/n_r, diagonal fix-up, top-k.
 
 With ``use_kernel`` (the default) each level is one launch of the fused
-lane-probe kernel (``kernels/lane_probe``) against the ELL table; without
-it, the level is the JAX package's kernel-off composition (scatter inject,
-``push_level_padded``, scatter exclude) over the push graph ``g``.
+lane-probe kernel (``kernels/lane_probe``) against the ELL table, each row
+read up to its ``in_deg``, writing into two score buffers that take turns;
+without it, the level is the JAX package's kernel-off composition (scatter
+inject, ``push_level_padded``, scatter exclude) over the push graph ``g``.
 
 The JAX package runs the level loop as a ``lax.while_loop``; here it is a
 Python loop that reads the continue predicate (``lane_continue``) on the
@@ -187,15 +188,22 @@ def fused_serve(
 
         ell = g if isinstance(g, EllGraph) else eg
         w_push = ell.inv_in_deg * sqrt_c
-        zrow = torch.zeros((1, w), dtype=dtype, device=dev)
+        spare = [torch.zeros((n + 1, w), dtype=dtype, device=dev)]
 
         def level_fn(scores, total, fin, u_p, u_prev, thr):
-            out, tot = lane_probe_level(
+            # Two [n + 1, W] score buffers take turns: the level reads one
+            # and writes rows [0, n) of the other, so row n of both stays
+            # zero.  The deposit goes into total[:n] in place: each element
+            # is read and rewritten by one thread only.
+            out = spare.pop()
+            lane_probe_level(
                 ell.in_nbrs, w_push, scores, scores[:n], total[:n],
-                fin, u_p, u_prev, thr,
+                fin, u_p, u_prev, thr, row_len=ell.in_deg,
                 row0=0, tab0=0, n_live=n, prune=eps_p > 0.0,
+                out=out[:n], tot=total[:n],
             )
-            return torch.cat([out, zrow]), torch.cat([tot, zrow])
+            spare.append(scores)
+            return out, total
     else:
         ones = torch.ones(w, dtype=dtype, device=dev)
         zero = torch.zeros((), dtype=dtype, device=dev)

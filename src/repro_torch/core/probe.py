@@ -20,8 +20,8 @@ more pushes, each scaling by <= sqrt(c), so entries with
 ``score * sqrt(c)^(p-1) <= eps_p`` are dropped.
 
 With an ``EllGraph`` and ``use_kernel`` (the default) every push is the
-ELL-SpMM op (``kernels/spmm_ell``): its CUDA kernel on the card, its plain
-version on the CPU.  A COO ``Graph`` pushes through ``push_coo``.
+ELL-SpMM op (``kernels/spmm_ell``) over each row's ``in_deg`` slots: its
+CUDA kernel on the card, its plain version on the CPU.  A COO ``Graph`` pushes through ``push_coo``.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ def push_level(
         if use_kernel:
             from repro_torch.kernels.spmm_ell.ops import spmm_ell
 
-            return spmm_ell(g.in_nbrs, scores, w)
+            return spmm_ell(g.in_nbrs, scores, w, row_len=g.in_deg)
         return push_ell(g, scores, weights=w)
     return push_coo(g, scores, weights=w)
 
@@ -83,7 +83,7 @@ def push_level_padded(
         if use_kernel:
             from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
 
-            out = spmm_ell_padded(g.in_nbrs, scores, w)
+            out = spmm_ell_padded(g.in_nbrs, scores, w, row_len=g.in_deg)
         else:
             out = push_ell_padded(g, scores, weights=w)
     else:

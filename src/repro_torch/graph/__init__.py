@@ -14,6 +14,7 @@ from repro_torch.graph.generators import (
 from repro_torch.graph.structs import (
     EllGraph,
     Graph,
+    check_live_prefix,
     ell_from_edges,
     graph_from_edges,
     graph_to_host_edges,
@@ -26,6 +27,7 @@ from repro_torch.graph.structs import (
 __all__ = [
     "EllGraph",
     "Graph",
+    "check_live_prefix",
     "ell_from_edges",
     "graph_from_edges",
     "graph_to_host_edges",

@@ -12,7 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.graph.structs import EllGraph, Graph, resolve_device
+from repro_torch.graph.structs import (
+    EllGraph,
+    Graph,
+    check_live_prefix,
+    resolve_device,
+)
 
 
 def _i32(a, dev) -> torch.Tensor:
@@ -65,14 +70,21 @@ def ell_from_arrays(
     overflow: bool = False,
     device="cuda",
 ) -> EllGraph:
-    """``EllGraph`` from an ``[n, k_max]`` in-neighbor table and degrees."""
+    """``EllGraph`` from an ``[n, k_max]`` in-neighbor table and degrees.
+
+    The table was built elsewhere, so the live-prefix rule the kernels rely
+    on (``in_nbrs[v, k] < n`` exactly when ``k < in_deg[v]``) is checked
+    once, on ``device``; a table that breaks it raises ``ValueError``.
+    """
     dev = resolve_device(device)
     in_nbrs = np.asarray(in_nbrs, np.int32)
     if in_nbrs.ndim != 2 or in_nbrs.shape[0] != n:
         raise ValueError(f"in_nbrs must be [n={n}, k_max], got {in_nbrs.shape}")
+    table, deg = _i32(in_nbrs, dev), _i32(in_deg, dev)
+    check_live_prefix(table, deg, n)
     return EllGraph(
-        in_nbrs=_i32(in_nbrs, dev),
-        in_deg=_i32(in_deg, dev),
+        in_nbrs=table,
+        in_deg=deg,
         n=int(n),
         k_max=int(in_nbrs.shape[1]),
         version=int(version),

@@ -82,7 +82,8 @@ class Graph:
 @dataclasses.dataclass
 class EllGraph:
     """Padded in-neighbor table (ELL).  in_nbrs[v, k] = k-th in-neighbor of v
-    for k < in_deg[v], else sentinel n."""
+    for k < in_deg[v], else sentinel n: live slots come first, which is what
+    lets the kernels stop each row at ``in_deg[v]`` (``check_live_prefix``)."""
 
     in_nbrs: Tensor  # int32 [n, k_max], padded with n
     in_deg: Tensor  # int32 [n]
@@ -98,6 +99,27 @@ class EllGraph:
     @property
     def inv_in_deg(self) -> Tensor:
         return inv_degree(self.in_deg)
+
+
+def check_live_prefix(in_nbrs: Tensor, in_deg: Tensor, n: int) -> None:
+    """Raise unless ``in_nbrs[v, k] < n`` exactly when ``k < in_deg[v]`` and
+    ``0 <= in_deg[v] <= K``: the row extent the kernels read.  Checked on the
+    table's device in row chunks of about ``GATHER_BUDGET_BYTES``; one host
+    read."""
+    r, k = in_nbrs.shape
+    if in_deg.shape != (r,):
+        raise ValueError(f"in_deg must be [{r}], got {tuple(in_deg.shape)}")
+    bad = ((in_deg < 0) | (in_deg > k)).any()
+    slots = torch.arange(k, device=in_nbrs.device)
+    step = max(1, GATHER_BUDGET_BYTES // max(1, k))
+    for a in range(0, r, step):
+        live = in_nbrs[a : a + step] < n
+        bad |= (live != (slots[None, :] < in_deg[a : a + step, None])).any()
+    if bool(bad):
+        raise ValueError(
+            "ELL table breaks the live-prefix rule: some row has a sentinel "
+            "before in_deg[v], a live id at or after it, or in_deg outside [0, K]"
+        )
 
 
 # ---------------------------------------------------------------------------

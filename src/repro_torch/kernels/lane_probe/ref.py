@@ -1,17 +1,21 @@
 """Plain PyTorch version of the fused lane-probe level (``csrc/lane_probe.cu``).
 
-Mirrors the kernel, and the JAX package's ``lane_probe_level_ref``, element
-for element: the same deposit, inject, prune, sentinel mask, weighted
-gather-sum and exclusion.  It materializes the gathered ``[rows, K, W]``
-block, so rows are processed in chunks under ``GATHER_BUDGET_BYTES``.  The
-CPU path of ``ops.lane_probe_level`` and the on-card comparison use it; the
-card's serve path never does.
+Mirrors the kernel element for element: the same deposit, inject, prune,
+sentinel mask, row extent (slot k of row v counts only if
+``k < row_len[v]``), weighted gather-sum and exclusion.  With
+``row_len = in_deg`` on a table whose live slots come first it equals the
+JAX package's ``lane_probe_level_ref``.  It materializes the gathered
+``[rows, K', W]`` block (K' the chunk's longest extent), so rows are
+processed in chunks under ``GATHER_BUDGET_BYTES`` (``row_chunks``).  The
+CPU path of ``ops.lane_probe_level`` and the on-card comparison use it;
+the card's serve path never does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.graph.structs import GATHER_BUDGET_BYTES
+from repro_torch.kernels.spmm_ell.ref import row_chunks
 
 Tensor = torch.Tensor
 
@@ -27,6 +31,7 @@ def lane_probe_level_ref(
     u_prev: Tensor,   # int32 [W]
     thr: Tensor,      # f32 [W]
     *,
+    row_len: Tensor,  # int32 [R]
     row0: int,
     tab0: int,
     n_live: int,
@@ -40,20 +45,20 @@ def lane_probe_level_ref(
     # deposit: fp32 accumulate, storage-dtype store
     tot = total.float() + torch.where(fin[None, :], dep.float(), zero)
 
-    out = torch.empty((r, w), dtype=torch.float32, device=table.device)
-    step = max(1, GATHER_BUDGET_BYTES // max(1, k * w * 4))
-    for a in range(0, r, step):
-        idx = nbrs[a : a + step]
+    out = torch.zeros((r, w), dtype=torch.float32, device=table.device)
+    for a, b, kk in row_chunks(row_len, k, w * 4, GATHER_BUDGET_BYTES):
+        idx = nbrs[a:b, :kk]
         addr = (idx.long() - int(row0) + int(tab0)).clamp(0, t - 1)
-        rows = table[addr].float()  # [rows, K, W]
+        rows = table[addr].float()  # [rows, K', W]
+        cut = torch.arange(kk, device=table.device)[None, :] >= row_len[a:b, None]
         idx = idx[:, :, None]
         eff = torch.where(fin[None, None, :], zero, rows) + (
             idx == u_p[None, None, :]
         ).float()
         if prune:
             eff = torch.where(eff > thr[None, None, :], eff, zero)
-        eff = torch.where(idx >= n_live, zero, eff)
-        out[a : a + step] = eff.sum(dim=1) * weights[a : a + step, None]
+        eff = torch.where((idx >= n_live) | cut[:, :, None], zero, eff)
+        out[a:b] = eff.sum(dim=1) * weights[a:b, None]
 
     gids = int(row0) + torch.arange(r, dtype=torch.int32, device=table.device)
     out = torch.where(u_prev[None, :] == gids[:, None], zero, out)

@@ -1,12 +1,17 @@
-"""Public op: ELL SpMM, on the card or the CPU.
+"""Public op: ELL SpMM over the row extent, on the card or the CPU.
+
+    out[v, b] = w[v] · Σ_{k < row_len[v]} scores[min(nbrs[v, k], n), b]
 
 * ``spmm_ell_padded`` — scores arrive as [n + 1, B] with the zero dump row
-  baked in (the probe's buffers), returns [n, B];
+  baked in (the probe's buffers), returns [R, B];
 * ``spmm_ell``        — [n, B] or [n] scores; appends the dump row.
 
-Given CUDA tensors ``spmm_ell_padded`` launches ``csrc/spmm_ell.cu``
-(which replaces the Pallas kernel ``src/repro/kernels/spmm_ell/spmm_ell.py``)
-for any shape, or raises; given CPU tensors it runs the plain version
+It equals the Pallas kernel's function whenever each row's live slots come
+first (``row_len = in_deg``).  Given CUDA tensors ``spmm_ell_padded``
+launches ``csrc/spmm_ell.cu`` (which replaces the Pallas kernel
+``src/repro/kernels/spmm_ell/spmm_ell.py``) over the chunk plan of
+``row_len`` (``kernels/ell_plan.py``, built on the first launch with that
+``row_len`` tensor and kept), or raises; given CPU tensors it runs the plain version
 (``ref.py``).  Storage may be float32, float16 or bfloat16; accumulation
 is fp32.  ``spmm_ell_padded.launches`` counts kernel launches.
 """
@@ -15,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ell_plan import launch_args, launch_layout, plan_of
 from repro_torch.kernels.spmm_ell.ref import spmm_ell_padded_ref
 
 Tensor = torch.Tensor
@@ -27,20 +33,22 @@ _fns: dict = {}
 def _kernel(dtype):
     fn = _fns.get(dtype)
     if fn is None:
-        fn = _build.bind(_build.load("spmm_ell"), _SYMBOLS[dtype], 4, 4)
+        fn = _build.bind(_build.load("spmm_ell"), _SYMBOLS[dtype], 11, 9)
         _fns[dtype] = fn
     return fn
 
 
-def spmm_ell_padded(nbrs: Tensor, scores: Tensor, weights: Tensor) -> Tensor:
-    """out[v] = w[v] * sum_k scores[nbrs[v, k]]; scores [n + 1, B], row n zero.
+def spmm_ell_padded(nbrs: Tensor, scores: Tensor, weights: Tensor, *,
+                    row_len: Tensor) -> Tensor:
+    """out[v] = w[v] * sum_{k < row_len[v]} scores[nbrs[v, k]]; scores
+    [n + 1, B], row n zero.
 
-    ``nbrs`` is [R, K] (R = n on the probe path, fewer for a row slice) and
-    ``weights`` [R]; slot ids >= n address the dump row, which MUST be zero.
-    Returns [R, B].
+    ``nbrs`` is [R, K] (R = n on the probe path, fewer for a row slice),
+    ``weights`` and ``row_len`` [R]; slot ids >= n address the dump row,
+    which MUST be zero.  Returns [R, B].
     """
     if scores.device.type == "cpu":
-        return spmm_ell_padded_ref(nbrs, scores, weights)
+        return spmm_ell_padded_ref(nbrs, scores, weights, row_len=row_len)
     if scores.device.type != "cuda":
         raise ValueError(f"spmm_ell: no kernel for device {scores.device}")
     if scores.dtype not in _SYMBOLS:
@@ -53,6 +61,7 @@ def spmm_ell_padded(nbrs: Tensor, scores: Tensor, weights: Tensor) -> Tensor:
         ("nbrs", nbrs, torch.int32, (r, k)),
         ("weights", weights, torch.float32, (r,)),
         ("scores", scores, scores.dtype, (n + 1, b)),
+        ("row_len", row_len, torch.int32, (r,)),
     ):
         if x.device != scores.device or x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(
@@ -64,10 +73,14 @@ def spmm_ell_padded(nbrs: Tensor, scores: Tensor, weights: Tensor) -> Tensor:
     out = torch.empty((r, b), dtype=scores.dtype, device=scores.device)
     if r == 0 or b == 0:
         return out
+    plan = plan_of(row_len, k)
+    vec, tc, tiles = launch_layout(b, scores.element_size(), scores.data_ptr(),
+                                   out.data_ptr())
+    pargs, scratch = launch_args(plan, b, tiles)  # scratch lives past the call
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     rc = _kernel(scores.dtype)(
         nbrs.data_ptr(), scores.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        r, k, n, b, stream,
+        *pargs, k, n, b, vec, tc, tiles, stream,
     )
     _build.check(rc, "spmm_ell")
     spmm_ell_padded.launches += 1
@@ -77,8 +90,10 @@ def spmm_ell_padded(nbrs: Tensor, scores: Tensor, weights: Tensor) -> Tensor:
 spmm_ell_padded.launches = 0
 
 
-def spmm_ell(nbrs: Tensor, scores: Tensor, weights: Tensor) -> Tensor:
-    """out[v] = w[v] * sum_k scores[nbrs[v, k]]; scores [n, B] or [n].
+def spmm_ell(nbrs: Tensor, scores: Tensor, weights: Tensor, *,
+             row_len: Tensor) -> Tensor:
+    """out[v] = w[v] * sum_{k < row_len[v]} scores[nbrs[v, k]]; scores [n, B]
+    or [n].
 
     Appends the zero dump row and defers to ``spmm_ell_padded``.
     """
@@ -86,5 +101,5 @@ def spmm_ell(nbrs: Tensor, scores: Tensor, weights: Tensor) -> Tensor:
     if squeeze:
         scores = scores[:, None]
     padded = torch.cat([scores, scores.new_zeros((1, scores.shape[1]))], dim=0)
-    out = spmm_ell_padded(nbrs, padded, weights)
+    out = spmm_ell_padded(nbrs, padded, weights, row_len=row_len)
     return out[:, 0] if squeeze else out

@@ -195,3 +195,79 @@ def test_tree_copy_equal(small_powerlaw):
             for x, y in zip(getattr(a, f), getattr(b, f), strict=True):
                 np.testing.assert_array_equal(x, y)
         assert jt.tree_stats(a) == tt.tree_stats(b)
+
+
+# ---------------------------------------------------------------------------
+# The live-prefix rule the kernels' row extent relies on
+# ---------------------------------------------------------------------------
+
+
+def _live_first(in_nbrs, in_deg, n):
+    """in_nbrs[v, k] < n exactly when k < in_deg[v] (numpy)."""
+    slots = np.arange(in_nbrs.shape[1])[None, :] < in_deg[:, None]
+    return bool(((in_nbrs < n) == slots).all())
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+@pytest.mark.parametrize("pad", [0, 3])
+def test_port_ell_keeps_live_slots_first(request, name, pad):
+    d = _graph(request, name)
+    k_max = int(np.bincount(d["dst"], minlength=d["n"]).max()) + pad
+    teg = tstructs.ell_from_edges(d["src"], d["dst"], d["n"], k_max=k_max,
+                                  device=CPU)
+    assert _live_first(teg.in_nbrs.numpy(), teg.in_deg.numpy(), d["n"])
+    tstructs.check_live_prefix(teg.in_nbrs, teg.in_deg, d["n"])
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_reference_updates_keep_live_slots_first(request, name):
+    """repro's apply_update_batch keeps live slots first after a stream of
+    delete-heavy batches (stable row compaction, appends at in_deg), and the
+    port accepts each snapshot through ell_from_arrays."""
+    from repro.graph.dynamic import apply_update_batch_jit, make_update_batch
+    from repro_torch.graph.convert import ell_from_arrays
+
+    d = _graph(request, name)
+    n = d["n"]
+    k_max = int(np.bincount(d["dst"], minlength=n).max()) + 2
+    g = jstructs.graph_from_edges(d["src"], d["dst"], n, capacity=len(d["src"]) + 16)
+    eg = jstructs.ell_from_edges(d["src"], d["dst"], n, k_max=k_max)
+    rng = np.random.default_rng(5)
+    for _ in range(6):
+        src, dst = jstructs.graph_to_host_edges(g)
+        pick = rng.choice(len(src), size=min(len(src), 6), replace=False)
+        new_s, new_d = rng.integers(0, n, 2), rng.integers(0, n, 2)
+        batch = make_update_batch(
+            np.concatenate([src[pick], new_s]), np.concatenate([dst[pick], new_d]),
+            np.concatenate([np.zeros(len(pick), bool), np.ones(2, bool)]),
+            batch_size=16, n=n)
+        g, eg, applied = apply_update_batch_jit(g, eg, batch)
+        assert bool(np.asarray(applied)[: len(pick)].all())
+        nbrs, deg = np.asarray(eg.in_nbrs), np.asarray(eg.in_deg)
+        assert _live_first(nbrs, deg, n)
+        teg = ell_from_arrays(in_nbrs=nbrs, in_deg=deg, n=n, device=CPU)
+        np.testing.assert_array_equal(teg.in_nbrs.numpy(), nbrs)
+    assert int(np.asarray(g.num_edges)) < len(d["src"])
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+@pytest.mark.parametrize("fault", ["hole", "live_past_deg", "deg_past_k"])
+def test_live_prefix_check_raises(request, name, fault, monkeypatch):
+    """ell_from_arrays refuses a table that breaks the rule, also when the
+    check runs in chunks of a few rows."""
+    from repro_torch.graph.convert import ell_from_arrays
+
+    d = _graph(request, name)
+    n = d["n"]
+    nbrs = np.array(d["eg"].in_nbrs)
+    deg = np.array(d["eg"].in_deg)
+    v = int(np.argmax(deg))
+    if fault == "hole":
+        nbrs[v, 0] = n               # a sentinel before a live id
+    elif fault == "live_past_deg":
+        deg[v] -= 1                  # the last live id now lies past in_deg
+    else:
+        deg[v] = nbrs.shape[1] + 1
+    monkeypatch.setattr(tstructs, "GATHER_BUDGET_BYTES", 3 * nbrs.shape[1])
+    with pytest.raises(ValueError, match="live-prefix"):
+        ell_from_arrays(in_nbrs=nbrs, in_deg=deg, n=n, device=CPU)

@@ -12,14 +12,25 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels.lane_probe.ops import lane_probe_level as j_lane
+from repro.kernels.lane_probe.ref import lane_probe_level_ref as j_lane_ref
 from repro.kernels.spmm_ell.ops import spmm_ell as j_spmm
 from repro.kernels.spmm_ell.ops import spmm_ell_padded as j_spmm_padded
+from repro.kernels.spmm_ell.ref import spmm_ell_ref as j_spmm_ref
+import repro_torch.kernels.ell_plan as ell_plan
+from repro_torch.kernels.ell_plan import (
+    CACHED_PLANS,
+    CHUNK_SLOTS,
+    build_plan,
+    clear_plans,
+    launch_layout,
+    plan_of,
+)
 from repro_torch.kernels.lane_probe.ops import lane_probe_level as t_lane
 from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
 from repro_torch.kernels.spmm_ell.ops import spmm_ell as t_spmm
 from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded as t_spmm_padded
 from repro_torch.kernels.spmm_ell.ref import spmm_ell_padded_ref, spmm_ell_ref
-from torch_port_helpers import needs_cuda
+from torch_port_helpers import needs_cuda, port_handle
 
 FIELDS = ("nbrs", "weights", "table", "dep", "total", "fin", "u_p", "u_prev",
           "thr")
@@ -45,6 +56,13 @@ def _level(rng, *, n=50, k=6, w=24, t=None, n_live=None):
     )
 
 
+def _full(nbrs):
+    """row_len reading every slot: the random tables here put sentinels
+    anywhere in a row, as repro's own kernel tests do."""
+    return torch.full((nbrs.shape[0],), nbrs.shape[1], dtype=torch.int32,
+                      device=nbrs.device)
+
+
 def _run_both(lv, *, row0=0, tab0=0, n_live, prune, bf16=False):
     """(port out, port tot, repro out, repro tot) as float32 numpy."""
     store = ("table", "dep", "total")
@@ -56,7 +74,7 @@ def _run_both(lv, *, row0=0, tab0=0, n_live, prune, bf16=False):
         targs = [a.to(torch.bfloat16) if f in store else a
                  for f, a in zip(FIELDS, targs)]
     kw = dict(row0=row0, tab0=tab0, n_live=n_live, prune=prune)
-    t_out, t_tot = t_lane(*targs, **kw)
+    t_out, t_tot = t_lane(*targs, row_len=_full(targs[0]), **kw)
     j_out, j_tot = j_lane(*jargs, **kw)
     want = torch.bfloat16 if bf16 else torch.float32
     assert t_out.dtype == t_tot.dtype == want
@@ -142,7 +160,7 @@ def test_lane_probe_plain_chunks(monkeypatch):
 
     lv = {f: torch.from_numpy(np.array(v))
           for f, v in _level(np.random.default_rng(7)).items()}
-    kw = dict(row0=0, tab0=0, n_live=50, prune=True)
+    kw = dict(row0=0, tab0=0, n_live=50, prune=True, row_len=_full(lv["nbrs"]))
     whole = lane_probe_level_ref(**lv, **kw)
     monkeypatch.setattr(ref, "GATHER_BUDGET_BYTES", 2 * 6 * 24 * 4)
     for a, b in zip(whole, lane_probe_level_ref(**lv, **kw)):
@@ -153,14 +171,16 @@ def test_cpu_wrappers_run_plain_versions():
     """On CPU tensors the wrappers are the plain versions and count no launch."""
     lv = {f: torch.from_numpy(np.array(v))
           for f, v in _level(np.random.default_rng(8)).items()}
-    kw = dict(row0=0, tab0=0, n_live=50, prune=True)
+    full = _full(lv["nbrs"])
+    kw = dict(row0=0, tab0=0, n_live=50, prune=True, row_len=full)
     before = (t_lane.launches, t_spmm_padded.launches)
     for a, b in zip(t_lane(**lv, **kw), lane_probe_level_ref(**lv, **kw)):
         assert torch.equal(a, b)
     scores = torch.rand(51, 4)
     scores[50] = 0
-    assert torch.equal(t_spmm_padded(lv["nbrs"], scores, lv["weights"]),
-                       spmm_ell_padded_ref(lv["nbrs"], scores, lv["weights"]))
+    assert torch.equal(
+        t_spmm_padded(lv["nbrs"], scores, lv["weights"], row_len=full),
+        spmm_ell_padded_ref(lv["nbrs"], scores, lv["weights"], row_len=full))
     assert (t_lane.launches, t_spmm_padded.launches) == before
 
 
@@ -168,9 +188,11 @@ def test_wrappers_refuse_other_devices():
     """A tensor on neither the CPU nor CUDA never falls back to the plain
     version."""
     meta = dict(device="meta")
+    row_len = torch.empty(4, dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="no kernel"):
         t_spmm_padded(torch.empty((4, 2), dtype=torch.int32, **meta),
-                      torch.empty((5, 3), **meta), torch.empty(4, **meta))
+                      torch.empty((5, 3), **meta), torch.empty(4, **meta),
+                      row_len=row_len)
     with pytest.raises(ValueError, match="no kernel"):
         t_lane(torch.empty((4, 2), dtype=torch.int32, **meta),
                torch.empty(4, **meta), torch.empty((5, 3), **meta),
@@ -178,7 +200,8 @@ def test_wrappers_refuse_other_devices():
                torch.empty(3, dtype=torch.bool, **meta),
                torch.empty(3, dtype=torch.int32, **meta),
                torch.empty(3, dtype=torch.int32, **meta),
-               torch.empty(3, **meta), row0=0, tab0=0, n_live=4, prune=False)
+               torch.empty(3, **meta), row_len=row_len, row0=0, tab0=0,
+               n_live=4, prune=False)
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +222,9 @@ def test_spmm_ell_matches_repro(n, k, b, dtype):
     nbrs, scores, weights = _ell(np.random.default_rng(n + k), n, k, b, dtype)
     ref = np.asarray(j_spmm(jnp.asarray(nbrs), jnp.asarray(scores),
                             jnp.asarray(weights)), np.float32)
-    out = t_spmm(torch.from_numpy(nbrs), torch.from_numpy(scores),
-                 torch.from_numpy(weights))
+    tn = torch.from_numpy(nbrs)
+    out = t_spmm(tn, torch.from_numpy(scores), torch.from_numpy(weights),
+                 row_len=_full(tn))
     assert out.dtype == torch.from_numpy(scores).dtype
     tol = 1e-5 if dtype == np.float32 else 2e-2
     np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
@@ -212,11 +236,12 @@ def test_spmm_ell_untiled_shapes():
     nbrs, scores, weights = _ell(np.random.default_rng(9), 100, 3, 8, np.float32)
     ref = np.asarray(j_spmm(jnp.asarray(nbrs), jnp.asarray(scores),
                             jnp.asarray(weights)))
-    out = t_spmm(torch.from_numpy(nbrs), torch.from_numpy(scores),
-                 torch.from_numpy(weights))
+    tn = torch.from_numpy(nbrs)
+    out = t_spmm(tn, torch.from_numpy(scores), torch.from_numpy(weights),
+                 row_len=_full(tn))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
-    vec = t_spmm(torch.from_numpy(nbrs), torch.from_numpy(scores[:, 0].copy()),
-                 torch.from_numpy(weights))
+    vec = t_spmm(tn, torch.from_numpy(scores[:, 0].copy()),
+                 torch.from_numpy(weights), row_len=_full(tn))
     np.testing.assert_allclose(vec.numpy(), ref[:, 0], atol=1e-6)
 
 
@@ -225,15 +250,16 @@ def test_spmm_ell_padded_and_bf16():
     padded = np.concatenate([scores, np.zeros((1, 16), np.float32)])
     ref = np.asarray(j_spmm_padded(jnp.asarray(nbrs), jnp.asarray(padded),
                                    jnp.asarray(weights)))
+    full = _full(torch.from_numpy(nbrs))
     out = t_spmm_padded(torch.from_numpy(nbrs), torch.from_numpy(padded),
-                        torch.from_numpy(weights))
+                        torch.from_numpy(weights), row_len=full)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
     jb = np.asarray(j_spmm_padded(jnp.asarray(nbrs),
                                   jnp.asarray(padded, jnp.bfloat16),
                                   jnp.asarray(weights)), np.float32)
     tb = t_spmm_padded(torch.from_numpy(nbrs),
                        torch.from_numpy(padded).to(torch.bfloat16),
-                       torch.from_numpy(weights))
+                       torch.from_numpy(weights), row_len=full)
     assert tb.dtype == torch.bfloat16
     np.testing.assert_allclose(tb.float().numpy(), jb, atol=2e-2, rtol=2e-2)
 
@@ -242,10 +268,13 @@ def test_spmm_ell_row_slice():
     """R < n rows against the full [n + 1, B] buffer (a slice of the table)."""
     nbrs, scores, weights = _ell(np.random.default_rng(11), 64, 5, 8, np.float32)
     scores = np.concatenate([scores, np.zeros((1, 8), np.float32)])
-    full = spmm_ell_padded_ref(*map(torch.from_numpy, (nbrs, scores, weights)))
+    lens = _full(torch.from_numpy(nbrs))
+    full = spmm_ell_padded_ref(*map(torch.from_numpy, (nbrs, scores, weights)),
+                               row_len=lens)
     part = t_spmm_padded(torch.from_numpy(nbrs[10:30].copy()),
                          torch.from_numpy(scores),
-                         torch.from_numpy(weights[10:30].copy()))
+                         torch.from_numpy(weights[10:30].copy()),
+                         row_len=lens[10:30].clone())
     assert torch.equal(part, full[10:30])
 
 
@@ -264,7 +293,7 @@ def test_lane_probe_kernel_on_card(bf16, n, w):
     args = {f: torch.from_numpy(np.array(v)).cuda() for f, v in lv.items()}
     for f in ("table", "dep", "total"):
         args[f] = args[f].to(dtype)
-    kw = dict(row0=0, tab0=0, n_live=n, prune=True)
+    kw = dict(row0=0, tab0=0, n_live=n, prune=True, row_len=_full(args["nbrs"]))
     before = t_lane.launches
     out = t_lane(**args, **kw)
     assert t_lane.launches == before + 1
@@ -281,9 +310,387 @@ def test_spmm_ell_kernel_on_card(dtype):
     nbrs, scores, weights = _ell(np.random.default_rng(13), 300, 9, 70, np.float32)
     args = [torch.from_numpy(x).cuda() for x in (nbrs, scores, weights)]
     args[1] = args[1].to(dtype)
+    full = _full(args[0])
     before = t_spmm_padded.launches
-    out = t_spmm(*args)
+    out = t_spmm(*args, row_len=full)
     assert t_spmm_padded.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(out.float(), spmm_ell_ref(*args).float(),
+    torch.testing.assert_close(out.float(),
+                               spmm_ell_ref(*args, row_len=full).float(),
                                rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Row extent and chunk plan (kernels/ell_plan.py)
+# ---------------------------------------------------------------------------
+
+GRAPHS = ("toy", "small_powerlaw")
+
+
+def _plan_rows(plan):
+    """{row: slots in the order the kernel sums them} from the plan's
+    chunks; also checks each chunk against the plan's shared-memory
+    bounds."""
+    chunks = plan.chunks.tolist()
+    short_rows, short_ptr = plan.short_rows.tolist(), plan.short_ptr.tolist()
+    long_rows, long_first = plan.long_rows.tolist(), plan.long_first.tolist()
+    seen, pieces = {}, {}
+    kinds = [c[0] for c in chunks]
+    assert kinds == sorted(kinds, key=lambda x: x == 0), "split chunks first"
+    for kind, a, b, p in chunks:
+        if kind == 0:
+            assert 0 < b - a <= plan.max_rows
+            assert short_ptr[b] - short_ptr[a] <= plan.max_slots
+            for i in range(a, b):
+                seen.setdefault(short_rows[i], []).append(
+                    list(range(short_ptr[i + 1] - short_ptr[i])))
+        else:
+            assert 0 < b - a <= plan.chunk_slots <= plan.max_slots
+            pieces.setdefault(kind - 1, []).append((p, a, b))
+    for l, ps in pieces.items():
+        ps.sort()
+        assert [p for p, _, _ in ps] == list(range(long_first[l], long_first[l + 1]))
+        seen.setdefault(long_rows[l], []).append(
+            [k for _, a, b in ps for k in range(a, b)])
+    return seen
+
+
+@pytest.mark.parametrize("chunk_slots", [8, CHUNK_SLOTS])
+def test_plan_covers_every_slot_once_in_order(chunk_slots):
+    """Zero-length rows, a hub row over many pieces, rows of exactly C and
+    C + 1 slots, rows past k_max and negative lengths."""
+    c = chunk_slots
+    rng = np.random.default_rng(20)
+    k_max = 5 * c + 7
+    lens = rng.integers(0, 6, 300)
+    lens[[0, 1, 57, 299]] = 0
+    lens[[10, 11, 12]] = [c, c + 1, 5 * c + 7]  # the last one: the hub row
+    lens[13], lens[14] = k_max + 40, -3          # clamped to [0, k_max]
+    row_len = torch.from_numpy(lens.astype(np.int32))
+    plan = build_plan(row_len, k_max, chunk_slots=c)
+    seen = _plan_rows(plan)
+    assert sorted(seen) == list(range(300))
+    for v, visits in seen.items():
+        assert len(visits) == 1, f"row {v} in {len(visits)} chunks"
+        assert visits[0] == list(range(min(max(int(lens[v]), 0), k_max)))
+    assert plan.n_long == (np.clip(lens, 0, k_max) > c).sum()
+    # a packed chunk's cost stays under one chunk plus its last row
+    short = np.clip(lens, 0, k_max)[np.clip(lens, 0, k_max) <= c]
+    assert plan.max_rows <= -(-c // 4) + 1 and plan.max_slots <= 2 * c
+    assert plan.short_ptr[-1] == short.sum()
+
+
+@pytest.mark.parametrize("lens", [[], [0, 0, 0], [9, 9], [0, 20, 0]])
+def test_plan_edge_row_sets(lens):
+    """No rows, only empty rows, only long rows, long rows between empties."""
+    row_len = torch.tensor(lens, dtype=torch.int32)
+    plan = build_plan(row_len, 20, chunk_slots=4)
+    seen = _plan_rows(plan)
+    assert sorted(seen) == list(range(len(lens)))
+    assert all(v[0] == list(range(lens[r])) for r, v in seen.items())
+
+
+def test_plan_cache_and_check(small_powerlaw, monkeypatch):
+    """plan_of builds once per row_len tensor and row range (a new view of
+    the same rows finds the plan), builds anew for other memory, another
+    table width or chunk size and after an in-place write, and keeps at most
+    CACHED_PLANS plans."""
+    h = port_handle(small_powerlaw["g"], small_powerlaw["eg"])
+    deg, k = h.eg.in_deg, h.k_max
+    clear_plans()
+    before = build_plan.builds
+    p = plan_of(deg, k)
+    assert plan_of(deg, k) is p and build_plan.builds == before + 1
+    part = plan_of(deg[10:60], k)
+    assert part is not p and tuple(part.row_len.shape) == (50,)
+    assert plan_of(deg[10:60], k) is part and build_plan.builds == before + 2
+    assert plan_of(deg.clone(), k) is not p
+    assert plan_of(deg, k + 1).k_max == k + 1
+    with monkeypatch.context() as m:
+        m.setattr(ell_plan, "CHUNK_SLOTS", 8)
+        assert plan_of(deg, k).chunk_slots == 8
+    assert plan_of(deg, k) is p and build_plan.builds == before + 5
+    deg[3] += 0  # an in-place write bumps the version
+    assert plan_of(deg, k) is not p and build_plan.builds == before + 6
+    for i in range(2 * CACHED_PLANS):
+        plan_of(deg[i:], k)
+    assert len(ell_plan._plans) == CACHED_PLANS
+    clear_plans()
+    assert not ell_plan._plans
+
+
+@pytest.mark.parametrize("width,itemsize,want", [
+    (256, 4, (4, 64, 1)), (64, 4, (4, 16, 1)), (1, 4, (1, 1, 1)),
+    (63, 4, (1, 64, 1)), (257, 4, (1, 256, 2)), (256, 2, (8, 32, 1)),
+    (2048, 4, (4, 256, 2)), (6, 2, (2, 4, 1)),
+])
+def test_launch_layout(width, itemsize, want):
+    assert launch_layout(width, itemsize, 0, 4096) == want
+
+
+def test_launch_layout_follows_alignment():
+    """A row pointer 8 bytes off a 16-byte boundary halves the vector."""
+    assert launch_layout(256, 4, 0, 8) == (2, 128, 1)
+    assert launch_layout(256, 4, 4) == (1, 256, 1)
+
+
+def _fixture_level(rng, d, w=24):
+    n = d["n"]
+    return dict(
+        nbrs=np.asarray(d["eg"].in_nbrs), weights=rng.random(n).astype(np.float32),
+        table=rng.random((n + 1, w)).astype(np.float32),
+        dep=rng.random((n, w)).astype(np.float32),
+        total=rng.random((n, w)).astype(np.float32),
+        fin=rng.random(w) < 0.4,
+        u_p=np.where(rng.random(w) < 0.5, rng.integers(0, n, w), n).astype(np.int32),
+        u_prev=np.where(rng.random(w) < 0.5, rng.integers(0, n, w), n).astype(np.int32),
+        thr=(rng.random(w) * 0.3).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+@pytest.mark.parametrize("prune", [False, True])
+def test_lane_probe_row_extent_matches_repro_ref(request, name, prune):
+    """row_len = in_deg on the fixture's ELL table == repro's
+    lane_probe_level_ref over all K slots (live slots come first)."""
+    d = request.getfixturevalue(name)
+    n = d["n"]
+    lv = _fixture_level(np.random.default_rng(21), d)
+    kw = dict(row0=0, tab0=0, n_live=n, prune=prune)
+    j_out, j_tot = j_lane_ref(*[jnp.asarray(lv[f]) for f in FIELDS], **kw)
+    targs = {f: torch.from_numpy(np.array(lv[f])) for f in FIELDS}
+    row_len = torch.from_numpy(np.array(d["eg"].in_deg))
+    t_out, t_tot = lane_probe_level_ref(**targs, row_len=row_len, **kw)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(t_tot.numpy(), np.asarray(j_tot), rtol=1e-5, atol=1e-6)
+    assert np.abs(t_out.numpy()).sum() > 0
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+@pytest.mark.parametrize("b", [None, 1, 7])
+def test_spmm_ell_row_extent_matches_repro_ref(request, name, b):
+    d = request.getfixturevalue(name)
+    n = d["n"]
+    rng = np.random.default_rng(22)
+    scores = rng.normal(size=(n,) if b is None else (n, b)).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    ref = np.asarray(j_spmm_ref(d["eg"].in_nbrs, jnp.asarray(scores), jnp.asarray(w)))
+    out = spmm_ell_ref(torch.from_numpy(np.array(d["eg"].in_nbrs)),
+                       torch.from_numpy(scores), torch.from_numpy(w),
+                       row_len=torch.from_numpy(np.array(d["eg"].in_deg)))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_cut_row_extent_is_honoured(small_powerlaw):
+    """A row_len that cuts live slots: both plain versions (and the CPU
+    wrappers) read only slots k < row_len[v], i.e. equal repro's refs on a
+    table whose cut slots hold the sentinel."""
+    d = small_powerlaw
+    n = d["n"]
+    nbrs = np.array(d["eg"].in_nbrs)
+    deg = np.array(d["eg"].in_deg)
+    cut = (deg // 2).astype(np.int32)
+    masked = np.where(np.arange(nbrs.shape[1])[None, :] < cut[:, None], nbrs, n)
+    assert (masked != nbrs).any()
+    row_len = torch.from_numpy(cut)
+    lv = _fixture_level(np.random.default_rng(23), d)
+    kw = dict(row0=0, tab0=0, n_live=n, prune=False)
+    jl = dict(lv, nbrs=masked.astype(np.int32))
+    j_out, _ = j_lane_ref(*[jnp.asarray(jl[f]) for f in FIELDS], **kw)
+    targs = {f: torch.from_numpy(np.array(lv[f])) for f in FIELDS}
+    for fn in (lane_probe_level_ref, t_lane):
+        t_out, _ = fn(**targs, row_len=row_len, **kw)
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=1e-5,
+                                   atol=1e-6)
+    full, _ = t_lane(**targs, row_len=torch.from_numpy(deg), **kw)
+    assert not torch.allclose(full, t_out)
+    scores = np.random.default_rng(24).normal(size=(n, 5)).astype(np.float32)
+    w = np.ones(n, np.float32)
+    ref = np.asarray(j_spmm_ref(jnp.asarray(masked), jnp.asarray(scores),
+                                jnp.asarray(w)))
+    for fn in (spmm_ell_ref, t_spmm):
+        out = fn(torch.from_numpy(nbrs), torch.from_numpy(scores),
+                 torch.from_numpy(w), row_len=row_len)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_lane_probe_destinations(small_powerlaw):
+    """out= / tot= (tot may be total itself) give the allocating call's
+    values; out= overlapping an input and tot= overlapping the table
+    raise."""
+    d = small_powerlaw
+    n = d["n"]
+    lv = {f: torch.from_numpy(np.array(v))
+          for f, v in _fixture_level(np.random.default_rng(25), d).items()}
+    kw = dict(row0=0, tab0=0, n_live=n, prune=True,
+              row_len=torch.from_numpy(np.array(d["eg"].in_deg)))
+    want_out, want_tot = t_lane(**lv, **kw)
+    buf = torch.full((n + 1, 24), 7.0)
+    total = lv["total"].clone()
+    out, tot = t_lane(**dict(lv, total=total), **kw, out=buf[:n], tot=total)
+    assert out.data_ptr() == buf.data_ptr() and tot is total
+    assert torch.equal(out, want_out) and torch.equal(tot, want_tot)
+    assert (buf[n] == 7.0).all()
+    with pytest.raises(ValueError, match="out= overlaps table"):
+        t_lane(**lv, **kw, out=lv["table"][:n])
+    with pytest.raises(ValueError, match="out= overlaps total"):
+        t_lane(**lv, **kw, out=lv["total"])
+    with pytest.raises(ValueError, match="tot= overlaps table"):
+        t_lane(**lv, **kw, tot=lv["table"][1:])
+    with pytest.raises(ValueError, match="must be contiguous"):
+        t_lane(**lv, **kw, out=torch.empty((24, n)).T)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned kernels on the card: row extent, split rows, determinism
+# ---------------------------------------------------------------------------
+
+
+def _live_first(rng, n, k, c=CHUNK_SLOTS):
+    """An [n, k] ELL table with live slots first: short rows, empty rows, a
+    hub row of k slots (several pieces), rows of exactly c and c + 1."""
+    deg = rng.integers(0, 6, n).astype(np.int32)
+    deg[[3, 9, n - 1]] = 0
+    deg[[10, 11, n // 2, n // 2 + 1]] = [c, c + 1, k, 2 * c + 3]
+    nbrs = np.full((n, k), n, np.int32)
+    for v in np.flatnonzero(deg):
+        nbrs[v, : deg[v]] = rng.integers(0, n, deg[v])
+    return nbrs, deg
+
+
+def _close_to_plain(out, ref, dtype):
+    """fp32: 1e-5 of the row sum (the plain version's terms are >= 0 here,
+    so the row sum is the output itself); bf16/fp16: one step."""
+    o, r = out.float(), ref.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-6)
+        return
+    bits = 7 if dtype == torch.bfloat16 else 10
+    step = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=1e-30))) - bits)
+    bad = (o - r).abs() > torch.maximum(step, torch.full_like(step, 1e-6))
+    assert not bool(bad.any()), float((o - r).abs().max())
+
+
+def _card_level(rng, nbrs, deg, w, dtype, *, row0=0, t=None):
+    n_all = nbrs.shape[0] if t is None else t
+    r = nbrs.shape[0]
+    lv = dict(
+        nbrs=torch.from_numpy(nbrs), weights=torch.from_numpy(rng.random(r).astype(np.float32)),
+        table=torch.from_numpy(rng.random((n_all + 1, w)).astype(np.float32)),
+        dep=torch.from_numpy(rng.random((r, w)).astype(np.float32)),
+        total=torch.from_numpy(rng.random((r, w)).astype(np.float32)),
+        fin=torch.from_numpy(rng.random(w) < 0.4),
+        u_p=torch.from_numpy(rng.integers(row0, row0 + r, w).astype(np.int32)),
+        u_prev=torch.from_numpy(rng.integers(row0, row0 + r, w).astype(np.int32)),
+        thr=torch.from_numpy((rng.random(w) * 0.3).astype(np.float32)),
+    )
+    lv = {f: x.cuda() for f, x in lv.items()}
+    for f in ("table", "dep", "total"):
+        lv[f] = lv[f].to(dtype)
+    return lv, torch.from_numpy(deg).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [1, 63, 64, 256, 257])
+def test_lane_probe_kernel_row_extent(dtype, w, monkeypatch):
+    """Hub row over several pieces, empty rows, rows of C and C + 1 slots,
+    and a cut row extent; default and small chunks."""
+    needs_cuda()
+    rng = np.random.default_rng(30 + w)
+    nbrs, deg = _live_first(rng, 1200, 1100)
+    lv, row_len = _card_level(rng, nbrs, deg, w, dtype)
+    kw = dict(row0=0, tab0=0, n_live=1200, prune=True)
+    cut = row_len // 2
+    for lens, chunk in ((row_len, CHUNK_SLOTS), (row_len, 64), (cut, CHUNK_SLOTS)):
+        monkeypatch.setattr(ell_plan, "CHUNK_SLOTS", chunk)
+        before = t_lane.launches
+        out, tot = t_lane(**lv, row_len=lens, **kw)
+        assert t_lane.launches == before + 1
+        ref_out, ref_tot = lane_probe_level_ref(**lv, row_len=lens, **kw)
+        _close_to_plain(out, ref_out, dtype)
+        _close_to_plain(tot, ref_tot, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_probe_kernel_row_slices(dtype):
+    """row0/tab0: a slice holding the hub row against the full frontier
+    (tab0 = row0) and against its own block (tab0 = 0)."""
+    needs_cuda()
+    rng = np.random.default_rng(31)
+    n = 1200
+    nbrs, deg = _live_first(rng, n, 1100)
+    row0, r = 500, 300  # holds the hub row n // 2
+    lv, row_len = _card_level(rng, nbrs[row0:row0 + r].copy(), deg[row0:row0 + r].copy(),
+                              64, dtype, row0=row0, t=n)
+    for tab0, table in ((row0, lv["table"]), (0, lv["table"][:r].contiguous())):
+        kw = dict(row0=row0, tab0=tab0, n_live=n, prune=tab0 == 0)
+        args = dict(lv, table=table)
+        out, tot = t_lane(**args, row_len=row_len, **kw)
+        ref_out, ref_tot = lane_probe_level_ref(**args, row_len=row_len, **kw)
+        _close_to_plain(out, ref_out, dtype)
+        _close_to_plain(tot, ref_tot, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 63, 64, 257])
+def test_spmm_ell_kernel_row_extent(dtype, b, monkeypatch):
+    needs_cuda()
+    rng = np.random.default_rng(40 + b)
+    n, k = 1200, 1100
+    nbrs, deg = _live_first(rng, n, k)
+    args = [torch.from_numpy(nbrs).cuda(),
+            torch.from_numpy(rng.random((n + 1, b)).astype(np.float32)).cuda().to(dtype),
+            torch.from_numpy(rng.uniform(0.1, 1.0, n).astype(np.float32)).cuda()]
+    args[1][n] = 0
+    row_len = torch.from_numpy(deg).cuda()
+    for lens, chunk in ((row_len, CHUNK_SLOTS), (row_len, 64),
+                        (row_len // 3, CHUNK_SLOTS)):
+        monkeypatch.setattr(ell_plan, "CHUNK_SLOTS", chunk)
+        before = t_spmm_padded.launches
+        out = t_spmm_padded(*args, row_len=lens)
+        assert t_spmm_padded.launches == before + 1
+        _close_to_plain(out, spmm_ell_padded_ref(*args, row_len=lens), dtype)
+    monkeypatch.undo()
+    part = t_spmm_padded(args[0][590:610].contiguous(), args[1],
+                         args[2][590:610].contiguous(), row_len=row_len[590:610])
+    _close_to_plain(part, spmm_ell_padded_ref(*args, row_len=row_len)[590:610], dtype)
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bit_for_bit(monkeypatch):
+    """The same inputs twice give the same bits: split rows are summed in
+    piece order, not by float atomics."""
+    needs_cuda()
+    rng = np.random.default_rng(50)
+    nbrs, deg = _live_first(rng, 1200, 1100)
+    lv, row_len = _card_level(rng, nbrs, deg, 256, torch.float32)
+    monkeypatch.setattr(ell_plan, "CHUNK_SLOTS", 32)
+    kw = dict(row0=0, tab0=0, n_live=1200, prune=False, row_len=row_len)
+    a = t_lane(**lv, **kw)
+    b = t_lane(**lv, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    scores = lv["table"][:, :64].contiguous()
+    scores[1200] = 0
+    s1 = t_spmm_padded(lv["nbrs"], scores, lv["weights"], row_len=row_len)
+    s2 = t_spmm_padded(lv["nbrs"], scores, lv["weights"], row_len=row_len)
+    assert torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_lane_probe_kernel_in_place():
+    """tot= total itself and out= a second buffer give the allocating
+    call's bits; the buffer's extra row stays untouched."""
+    needs_cuda()
+    rng = np.random.default_rng(51)
+    nbrs, deg = _live_first(rng, 1200, 1100)
+    lv, row_len = _card_level(rng, nbrs, deg, 256, torch.float32)
+    kw = dict(row0=0, tab0=0, n_live=1200, prune=True, row_len=row_len)
+    want_out, want_tot = t_lane(**lv, **kw)
+    buf = torch.zeros((1201, 256), device="cuda")
+    total = lv["total"].clone()
+    t_lane(**dict(lv, total=total), **kw, out=buf[:1200], tot=total)
+    assert torch.equal(buf[:1200], want_out) and torch.equal(total, want_tot)
+    assert bool((buf[1200] == 0).all())

@@ -242,3 +242,41 @@ def test_sample_walks_from_seed_is_reproducible(toy):
     b = sample_walks(make_generator(4, "cpu"), h.eg, 0, n_r=20, max_len=5,
                      sqrt_c=0.5)
     assert torch.equal(a, b) and (a[:, 0] == 0).all()
+
+
+def test_fused_serve_plan_and_buffers(small_powerlaw, monkeypatch):
+    """The kernel path hands every level the graph's own in_deg tensor (the
+    kernel's plan is built on the first launch and found after; the plain
+    version on the CPU builds none), reads each level from one of two
+    [n + 1, W] buffers and writes the other (out never the table), deposits
+    into total in place, and makes no torch.cat per level."""
+    import repro_torch.kernels.lane_probe.ops as lops
+    from repro_torch.kernels.ell_plan import build_plan
+
+    h = port_handle(small_powerlaw["g"], small_powerlaw["eg"])
+    params = make_params(h.n, c=0.6, eps_a=0.2, n_r_override=400)
+    want = multi_source(5, h.g, h.eg, [3, 11], params, lanes=64)
+    seen, cats = [], [0]
+    real_level, real_cat = lops.lane_probe_level, torch.cat
+
+    def level(*args, **kw):
+        seen.append((args[2].data_ptr(), kw["out"].data_ptr(),
+                     args[4].data_ptr(), kw["tot"].data_ptr(), kw["row_len"]))
+        return real_level(*args, **kw)
+
+    def cat(*args, **kw):
+        cats[0] += 1
+        return real_cat(*args, **kw)
+
+    monkeypatch.setattr(lops, "lane_probe_level", level)
+    monkeypatch.setattr(torch, "cat", cat)
+    before = build_plan.builds
+    est = multi_source(5, h.g, h.eg, [3, 11], params, lanes=64)
+    assert build_plan.builds == before
+    assert torch.equal(est, want)
+    assert len(seen) > 8 and cats[0] < len(seen) // 4
+    tables = {t for t, _, _, _, _ in seen}
+    assert len(tables) == 2 and all(o != t and o in tables for t, o, _, _, _ in seen)
+    assert all(tot == total for _, _, total, tot, _ in seen)
+    assert len({id(rl) for *_, rl in seen}) == 1
+    assert torch.equal(seen[0][-1], h.eg.in_deg)

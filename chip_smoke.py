@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the result line):
    library call): the live-prefix rule and the chunk plan of the HepPh ELL
    table, lane_probe (hub and no-hub slices, full table), spmm_ell and
    probe_push on that table, flash_attention at Llama-3.2-1B's 32k prefill
-   shape;
+   shape (its tensor-core route, held against the bf16-probability plain
+   version, and repeated bit for bit) and, timed only, at dh 128;
 3. the SimRank path at real size: 16 top-k queries on the HepPh stand-in
    (``paper_dataset("hepph", 1.0)``) submitted to ``SimRankSession`` and
    drained in batches of 8, then one ``single_source(variant="tree")`` on
@@ -27,7 +28,8 @@ Phases (any failure exits non-zero before the result line):
    seeded generator) through ``repro_torch.arch``: a 32,768-token prefill
    (``prefill_32k``, batch cut from 32 to 1) and 16 greedy decode steps over
    an 8 x 32,768 cache (``decode_32k``, batch cut from 128 to 8), with the
-   launch counters read around that window; then kernel-off prefill and 64
+   launch counters read around that window (all 16 prefill launches on the
+   tensor-core route); then kernel-off prefill and 64
    teacher-forced decode steps against the kernel-on forward must agree.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -49,6 +51,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# exp2 on the special-function units: 16 a clock on each of the 132 SMs at
+# the 1.83 GHz boost clock (logged beside the bound, which is the larger of
+# the bytes and the tensor-core operations)
+PEAK_EXP_PER_S = 132 * 16 * 1.83e9
 
 FP32_RTOL = 1e-5  # kernel vs plain in fp32: only the summation order differs
 BF16_RTOL = 1e-3  # bf16 storage: ... or one bf16 step, see bf16_close
@@ -99,6 +105,32 @@ def bf16_close(out, ref) -> float:
     bad = (diff > BF16_RTOL * scale) & (diff > step)
     require(not bool(bad.any()), f"bf16 mismatch {float(diff.max())}")
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def tc_close(out, ref, pv_abs) -> tuple[float, bool]:
+    """flash_attention's tensor-core route against ``attention_ref(probs_dtype=
+    torch.bfloat16)``.  Both round p to bf16, at different points: the kernel
+    rounds exp(s - m_tile) before the rescale, the plain version the
+    normalised probability.  So where ``bf16_close`` fails, this one
+    comparison is widened by exactly one term per element: 2^-8 * sum_j p_j
+    |v_j| (``pv_abs``, the plain version's attention over |v|), the most that
+    two roundings of each p_j to bf16 can move it.  Returns max |out - ref|
+    and whether the widening was needed."""
+    try:
+        return bf16_close(out, ref), False
+    except SmokeFailure:
+        pass
+    import torch
+
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    scale = max(1.0, float(r.abs().max()))
+    step = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=1e-30))) - 7)
+    allowed = torch.maximum(step, torch.full_like(step, BF16_RTOL * scale))
+    bad = diff > allowed + pv_abs.float() * 2.0**-8
+    require(not bool(bad.any()), f"tensor-core flash mismatch {float(diff.max())} "
+            "beyond bf16_close widened by 2^-8 sum_j p_j |v_j|")
+    return float(diff.max()), True
 
 
 def time_ms(fn, reps: int) -> float:
@@ -568,30 +600,65 @@ def flash_inputs(gen, dev, B, S, T, H, Hkv, dh, dtype):
     return rn(B, S, H, dh), rn(B, T, Hkv, dh), rn(B, T, Hkv, dh)
 
 
-def small_flash_cases(gen, dev) -> None:
-    """flash_attention against its plain version: MHA, GQA, MQA; S and T off
-    the 64-row tile; causal and not; fp32 and bf16; head widths 16 to 128."""
+def check_flash(q, k, v, causal) -> tuple[float, bool]:
+    """One flash_attention call against its route's plain version, with the
+    counter of that route required to move; returns the difference and
+    whether ``tc_close`` needed its widening."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, route
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    tensor_core = route(q.dtype, q.shape[-1]) == "tensor_core"
+    before, tc_before = flash_attention.launches, flash_attention.tc_launches
+    out = flash_attention(q, k, v, causal=causal)
+    require(flash_attention.launches == before + 1
+            and flash_attention.tc_launches == tc_before + int(tensor_core),
+            f"flash {q.dtype} dh={q.shape[-1]} took the wrong route")
+    require(out.dtype == q.dtype and out.shape == q.shape, "flash output")
+    if not tensor_core:
+        cmp = fp32_err if q.dtype == torch.float32 else bf16_close
+        return cmp(out, attention_ref(q, k, v, causal=causal)), False
+    ref = attention_ref(q, k, v, causal=causal, probs_dtype=torch.bfloat16)
+    return tc_close(out, ref, attention_ref(q, k, v.abs(), causal=causal))
+
+
+def small_flash_cases(gen, dev) -> int:
+    """flash_attention against its plain version on both routes: MHA, GQA,
+    MQA; S and T off the 64- and 128-row tiles; causal and not; fp32 and
+    bf16; head widths 8 to 128 (bf16 with dh % 8 != 0 stays on the CUDA
+    cores).  Returns the number of tensor-core cases that needed tc_close's
+    widening."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
 
     cases = (  # B, S, T, H, Hkv, dh, causal
-        (1, 128, 128, 2, 2, 16, True),     # MHA
-        (2, 200, 200, 8, 2, 64, True),     # GQA, S off the tile
+        (1, 128, 128, 2, 2, 16, True),     # MHA, one tile
+        (2, 200, 200, 8, 2, 64, True),     # GQA, S off the tile, B = 2
         (1, 70, 70, 4, 1, 128, True),      # MQA, dh 128
-        (2, 33, 150, 4, 4, 100, False),    # S != T, dh off the padding
+        (2, 33, 150, 4, 4, 100, False),    # S != T, dh % 8 != 0 (CUDA cores)
         (1, 1, 1, 32, 8, 64, True),        # one token
         (2, 1000, 1000, 32, 8, 64, True),  # Llama-3.2-1B heads
         (1, 300, 300, 8, 8, 128, False),
+        (2, 300, 300, 4, 4, 72, True),     # dh 72: two boxes, padded to 128
+        (1, 130, 257, 8, 1, 64, False),    # S != T, MQA, both off the tile
+        (1, 515, 515, 4, 2, 16, True),     # dh 16 padded to 64, ragged tile
+        (2, 129, 129, 6, 3, 8, True),      # dh 8, one row past the tile
+        (1, 384, 384, 8, 2, 128, True),    # three full tiles of dh 128
+        (1, 77, 77, 2, 2, 20, True),       # bf16 dh % 8 != 0: CUDA cores
     )
+    widened = 0
     for dtype in (torch.float32, torch.bfloat16):
-        cmp = fp32_err if dtype == torch.float32 else bf16_close
         for B, S, T, H, Hkv, dh, causal in cases:
             q, k, v = flash_inputs(gen, dev, B, S, T, H, Hkv, dh, dtype)
-            out = flash_attention(q, k, v, causal=causal)
-            cmp(out, attention_ref(q, k, v, causal=causal))
-            require(out.dtype == dtype and out.shape == q.shape, "flash output")
+            widened += check_flash(q, k, v, causal)[1]
+    # the tensor-core route gives the same bits on every run
+    q, k, v = flash_inputs(gen, dev, 2, 700, 700, 8, 2, 64, torch.bfloat16)
+    require(torch.equal(flash_attention(q, k, v, causal=True),
+                        flash_attention(q, k, v, causal=True)),
+            "tensor-core flash is not bit-for-bit repeatable")
+    return widened
 
 
 def probe_push_phase(h, params, gen) -> dict:
@@ -639,33 +706,50 @@ def flash_phase(gen, dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention, route
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     B, S, H, Hkv, dh = FLASH_SHAPE
     q, k, v = flash_inputs(gen, dev, B, S, S, H, Hkv, dh, torch.bfloat16)
+    require(route(q.dtype, dh) == "tensor_core", "the prefill shape left the tensor cores")
+    tc_before = flash_attention.tc_launches
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 3)
     out = flash_attention(q, k, v, causal=True)
-    p_ms, ref = plain_ms(lambda: attention_ref(q, k, v, causal=True))
-    err = bf16_close(out, ref)
+    require(flash_attention.tc_launches > tc_before, "no tensor-core launch")
+    require(torch.equal(out, flash_attention(q, k, v, causal=True)),
+            "tensor-core flash is not bit-for-bit repeatable at the prefill shape")
+    # the route's plain version rounds p to bf16 (timed); the fp32-probability
+    # one is the function's definition
+    p_ms, ref = plain_ms(lambda: attention_ref(q, k, v, causal=True,
+                                               probs_dtype=torch.bfloat16))
+    err, widened = tc_close(out, ref, attention_ref(q, k, v.abs(), causal=True))
+    ref32 = attention_ref(q, k, v, causal=True)
+    err32 = float((out.float() - ref32.float()).abs().max())
 
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
 
-    lib_err = float((library().float() - ref.float()).abs().max())
+    lib_out = library()
+    lib_err = float((lib_out.float() - ref32.float()).abs().max())
+    lib_vs_kernel = float((lib_out.float() - out.float()).abs().max())
+    del lib_out
     lib_ms = time_ms(library, 5)
     pairs = B * H * S * (S + 1) / 2
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
     bound, by = bound_ms(nbytes, pairs * 4 * dh, PEAK_BF16_FLOPS)
-    log(f"flash_attention B={B} S=T={S} H={H} Hkv={Hkv} dh={dh} bf16 causal: "
-        f"max_abs_err={err:.3e}, kernel {ms:.3f} ms "
-        f"({pairs * 4 * dh / ms / 1e9:.1f} TFLOP/s), plain (chunked) {p_ms:.1f} ms, "
-        f"scaled_dot_product_attention {lib_ms:.3f} ms (max |diff| {lib_err:.3e}), "
-        f"bound {bound:.3f} ms ({by})")
-    del q, k, v, out, ref
+    log(f"flash_attention B={B} S=T={S} H={H} Hkv={Hkv} dh={dh} bf16 causal "
+        f"(tensor cores): max |diff| vs plain bf16-p {err:.3e}"
+        f"{' (tc_close widened)' if widened else ' (bf16_close)'}, vs plain fp32-p "
+        f"{err32:.3e}, vs scaled_dot_product_attention {lib_vs_kernel:.3e}; "
+        f"kernel {ms:.3f} ms ({pairs * 4 * dh / ms / 1e9:.1f} TFLOP/s), plain "
+        f"(chunked, bf16 p) {p_ms:.1f} ms, scaled_dot_product_attention "
+        f"{lib_ms:.3f} ms (vs plain fp32-p {lib_err:.3e}), bound {bound:.3f} ms "
+        f"({by}); exp bound {pairs / PEAK_EXP_PER_S * 1e3:.3f} ms")
+    del q, k, v, out, ref, ref32
     torch.cuda.empty_cache()
+    wide_flash(gen, dev)
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -673,6 +757,37 @@ def flash_phase(gen, dev) -> dict:
         max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
         library_ms=lib_ms,
     )
+
+
+def wide_flash(gen, dev) -> None:
+    """The tensor-core route at dh 128, the head width of the repo's larger
+    LM configs (Yi-34B's 56 heads over 8 kv heads), S = T = 32,768, causal:
+    its time beside the library call's, logged only (the small cases hold
+    dh 128 against the plain version)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    B, S, H, Hkv, dh = 1, 32768, 56, 8, 128
+    q, k, v = flash_inputs(gen, dev, B, S, S, H, Hkv, dh, torch.bfloat16)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    diff = float((flash_attention(q, k, v, causal=True).float()
+                  - library().float()).abs().max())
+    lib_ms = time_ms(library, 3)
+    flops = B * H * S * (S + 1) / 2 * 4 * dh
+    log(f"flash_attention B={B} S=T={S} H={H} Hkv={Hkv} dh={dh} bf16 causal "
+        f"(tensor cores): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"scaled_dot_product_attention {lib_ms:.3f} ms, max |diff| {diff:.3e}, "
+        f"bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms (operations)")
+    del q, k, v
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -926,6 +1041,7 @@ def lm_phase(dev) -> int:
         # --- the LM path, with every launch counter read around it --------
         for fn in (flash_attention, lane_probe_level, spmm_ell_padded, probe_push):
             fn.launches = 0
+        flash_attention.tc_launches = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -933,6 +1049,7 @@ def lm_phase(dev) -> int:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = flash_attention.launches
+        prefill_tc = flash_attention.tc_launches
         prefill_peak = torch.cuda.max_memory_allocated() / 1e9
         tok = first
         step_s = []
@@ -957,6 +1074,9 @@ def lm_phase(dev) -> int:
         require(prefill_launches == cfg.n_layers,
                 f"prefill launched flash {prefill_launches} times, "
                 f"want one per layer ({cfg.n_layers})")
+        require(prefill_tc == cfg.n_layers,
+                f"{prefill_tc} of the prefill's {prefill_launches} flash launches "
+                "ran on the tensor cores, want all")
         require(launches["flash_attention"] == cfg.n_layers,
                 f"decode launched the flash kernel: {launches}")
         require(caches[0]["k"][:, :, 16:].abs().max() == 0
@@ -969,6 +1089,16 @@ def lm_phase(dev) -> int:
             f"(steps 2-16; step 1 {step_s[0] * 1e3:.2f} ms), "
             f"{Bd / dec_ms * 1e3:.1f} tokens/s, peak {decode_peak:.2f} GB; "
             f"launches {launches}")
+
+        # the same prefill again, outside the window: the first one above
+        # also grows the allocator's pool and warms the GEMMs' 32k shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre.step(model, dict(tokens=tokens))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        log(f"LM path: second prefill of {S} tokens in {warm_s:.3f} s "
+            f"({S / warm_s:.1f} tokens/s)")
 
         # where the time goes: one prefill and one decode step (position 16)
         profile(f"prefill of {S} tokens", lambda: pre.step(model, dict(tokens=tokens)))
@@ -1048,10 +1178,11 @@ def main() -> int:
     small_lane_cases(gen, dev)
     small_spmm_cases(gen, dev)
     small_probe_push_cases(gen, dev)
-    small_flash_cases(gen, dev)
+    widened = small_flash_cases(gen, dev)
     torch.cuda.synchronize()
     log("small kernel cases: ok (lane_probe fp32/bf16, spmm_ell fp32/fp16/bf16, "
-        "probe_push fp32/bf16, flash_attention fp32/bf16)")
+        "probe_push fp32/bf16, flash_attention fp32/bf16 on both routes; "
+        f"tensor-core cases needing tc_close's widening: {widened})")
     rows = {"flash_attention": flash_phase(gen, dev)}
 
     t0 = time.perf_counter()

@@ -1,15 +1,28 @@
 """Public op: flash attention in the model's ``[B, S, H, dh]`` layout.
 
-Given CUDA tensors ``flash_attention`` launches ``csrc/flash_attention.cu``
-(which replaces the Pallas kernel
+Given CUDA tensors ``flash_attention`` launches a kernel of
+``csrc/flash_attention.cu`` (which replaces the Pallas kernel
 ``src/repro/kernels/flash_attention/flash_attention.py``, ``_kernel``) or
-raises; given CPU tensors it runs the plain version (``ref.py``).  The
-kernel takes any S and T and any head width up to ``MAX_HEAD_DIM``; the
-reference wrapper's tile conditions (``S % bq``, ``T % bk``, ``dh % 8``)
-do not apply.  Causal attention needs S == T (the mask is ``row >= col``
-with no offset), as in the Pallas kernel.  Storage is float32 or bfloat16;
-softmax and accumulation are fp32.  ``flash_attention.launches`` counts
-kernel launches.
+raises; given CPU tensors it runs the plain version (``ref.py``, fp32
+probabilities).  ``route`` picks the kernel from the dtype and head width
+alone:
+
+* ``"tensor_core"`` (bf16 with ``dh % 8 == 0``): ``flash_tc_kernel``, wgmma
+  fed by TMA.  p is rounded to bf16 before the p v product, as
+  ``attention_ref(probs_dtype=torch.bfloat16)`` and the model's
+  ``attn_probs_dtype = "bfloat16"`` do.  TMA needs 16-byte row strides
+  (hence ``dh % 8``) and 16-byte-aligned base pointers.
+* ``"simt"`` (fp32, and bf16 with ``dh % 8 != 0``): ``flash_kernel`` on the
+  CUDA cores, p in fp32.
+
+Both take any S and T and any head width up to ``MAX_HEAD_DIM``; the
+reference wrapper's tile conditions (``S % bq``, ``T % bk``) do not apply.
+Causal attention needs S == T (the mask is ``row >= col`` with no offset),
+as in the Pallas kernel.  Softmax statistics and accumulation are fp32.
+``flash_attention.launches`` counts kernel launches of either route,
+``flash_attention.tc_launches`` those of the tensor-core route.  A CUDA
+tensor on a route launches that route's kernel or raises; nothing falls
+back to the other.
 """
 from __future__ import annotations
 
@@ -23,15 +36,21 @@ Tensor = torch.Tensor
 MAX_HEAD_DIM = 128
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+_TC_SYMBOL = "flash_attention_bf16_tc"
 _fns: dict = {}
 
 
-def _kernel(dtype):
-    fn = _fns.get(dtype)
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel that a CUDA call with this dtype and head width launches:
+    ``"tensor_core"`` for bf16 with ``dh % 8 == 0``, else ``"simt"``."""
+    return "tensor_core" if dtype == torch.bfloat16 and dh % 8 == 0 else "simt"
+
+
+def _kernel(symbol: str):
+    fn = _fns.get(symbol)
     if fn is None:
-        fn = _build.bind(_build.load("flash_attention"), _SYMBOLS[dtype], 4, 7,
-                         n_floats=1)
-        _fns[dtype] = fn
+        fn = _build.bind(_build.load("flash_attention"), symbol, 4, 7, n_floats=1)
+        _fns[symbol] = fn
     return fn
 
 
@@ -61,6 +80,8 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> None:
         raise ValueError(f"flash_attention: causal needs S == T, got {S} != {T}")
     if max(B, H) > 65535:
         raise ValueError("flash_attention: B and H must be at most 65535")
+    if route(q.dtype, dh) == "tensor_core" and -(-S // 128) > 65535:
+        raise ValueError("flash_attention: S must be at most 65535 * 128")
 
 
 def flash_attention(
@@ -84,14 +105,24 @@ def flash_attention(
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    tensor_core = route(q.dtype, dh) == "tensor_core"
+    if tensor_core:
+        for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} is not 16-byte aligned "
+                                 "(the tensor-core route loads it with TMA)")
+    symbol = _TC_SYMBOL if tensor_core else _SYMBOLS[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel(q.dtype)(
+    rc = _kernel(symbol)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, S, T, H, Hkv, dh, int(bool(causal)), float(scale), stream,
     )
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    if tensor_core:
+        flash_attention.tc_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0

@@ -5,7 +5,10 @@ attention); repro's op runs its Pallas kernel in interpret mode, as
 tests/test_kernels.py does, or its plain reference.  Inputs come from
 numpy with a seed.  Tolerances are tests/test_kernels.py's: fp32 2e-5
 (summation order), bf16 3e-2 (one bf16 rounding of outputs of order 1).
-The CUDA kernel is held against the plain version on the card only.
+The CUDA kernels are held against the plain version on the card only:
+the tensor-core route against ``attention_ref(probs_dtype=torch.bfloat16)``
+(it rounds p to bf16 before p v), the CUDA-core route against the fp32
+plain version.
 """
 import numpy as np
 import pytest
@@ -133,6 +136,45 @@ def test_sdpa_decode_kv_len_matches_repro():
     _close(out, j_sdpa(jq, jk, jv, causal_offset=None, kv_len=jnp.asarray(kv_len)), 2e-5)
 
 
+@pytest.mark.parametrize("causal,S,T,H,Hkv,dh", [
+    (True, 64, 64, 4, 2, 16),
+    (True, 100, 100, 4, 1, 64),
+    (False, 37, 90, 2, 2, 24),
+])
+def test_flash_ref_bf16_probs_match_repro_sdpa(causal, S, T, H, Hkv, dh):
+    """attention_ref(probs_dtype=bf16), the tensor-core kernel's plain
+    version, rounds p and v as repro's sdpa(probs_dtype=bf16) does."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(9, 2, S, H, Hkv, dh, T=T), True)
+    out = t_ref(tq, tk, tv, causal=causal, probs_dtype=torch.bfloat16, chunk_q=32)
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    ref = j_sdpa(jq, jk, jv, causal_offset=0 if causal else None,
+                 probs_dtype=jnp.bfloat16)
+    _close(out, ref, 3e-2)
+
+
+def test_flash_ref_probs_dtype_defaults_to_fp32():
+    _, (tq, tk, tv) = _both(_qkv(10, 1, 48, 2, 1, 16), False)
+    torch.testing.assert_close(
+        t_ref(tq, tk, tv), t_ref(tq, tk, tv, probs_dtype=torch.float32),
+        atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 8, "tensor_core"),
+    (torch.bfloat16, 16, "tensor_core"),
+    (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 72, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 100, "simt"),
+    (torch.bfloat16, 20, "simt"),
+    (torch.bfloat16, 1, "simt"),
+    (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"),
+])
+def test_flash_route(dtype, dh, want):
+    assert t_ops.route(dtype, dh) == want
+
+
 def test_sdpa_bf16_probs_match_repro():
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(7, 1, 64, 4, 2, 16), True)
     out = t_sdpa(tq, tk, tv, causal_offset=0, probs_dtype=torch.bfloat16)
@@ -150,15 +192,32 @@ def test_sdpa_bf16_probs_match_repro():
     (2, 200, 200, 8, 2, 64, True),
     (1, 70, 70, 4, 1, 128, True),
     (2, 33, 150, 4, 4, 100, False),
+    (2, 300, 300, 4, 4, 72, True),     # tensor cores: dh 72 pads to 128
+    (1, 130, 257, 8, 1, 64, False),    # S != T, MQA, both off the tile
+    (1, 1, 1, 4, 2, 64, True),         # one token
+    (2, 384, 384, 8, 2, 128, True),    # three full tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_on_card(B, S, T, H, Hkv, dh, causal, dtype):
     needs_cuda()
     q, k, v = (torch.from_numpy(a).cuda().to(dtype)
                for a in _qkv(8, B, S, H, Hkv, dh, T=T))
-    before = t_flash.launches
+    tensor_core = t_ops.route(dtype, dh) == "tensor_core"
+    before, tc_before = t_flash.launches, t_flash.tc_launches
     out = t_flash(q, k, v, causal=causal)
     assert t_flash.launches == before + 1
+    assert t_flash.tc_launches == tc_before + int(tensor_core)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(out.float(), t_ref(q, k, v, causal=causal).float(),
-                               atol=tol, rtol=tol)
+    probs = torch.bfloat16 if tensor_core else torch.float32
+    ref = t_ref(q, k, v, causal=causal, probs_dtype=probs)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_tensor_core_kernel_repeats_bit_for_bit(dh):
+    needs_cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in _qkv(11, 2, 520, 8, 2, dh))
+    first = t_flash(q, k, v, causal=True)
+    assert torch.equal(first, t_flash(q, k, v, causal=True))

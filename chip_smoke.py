@@ -8,8 +8,8 @@ Phases (any failure exits non-zero before the result line):
 1. the card's name and power limit; build the four CUDA kernels with nvcc,
    one process per source, all at once;
 2. each kernel against its plain PyTorch version on the card: small edge
-   cases (for lane_probe and spmm_ell also live-first tables with empty
-   rows, a hub row over several chunks and cut row extents), then the
+   cases (for lane_probe, spmm_ell and probe_push also live-first tables
+   with empty rows, a hub row over several chunks and cut row extents), then the
    shapes of the paths below, with timings (kernel, plain version, bound,
    library call): the live-prefix rule and the chunk plan of the HepPh ELL
    table, lane_probe (hub and no-hub slices, full table), spmm_ell and
@@ -355,9 +355,11 @@ def lane_bound(nbrs, row_len, n_live, w, fin, *, tot_inplace=False):
     return t, by, nbytes
 
 
-def spmm_bound(nbrs, row_len, n, b):
+def spmm_bound(nbrs, row_len, n, b, *, push=False):
     """Least bytes and operations of one spmm_ell call: live ids, each
-    distinct gathered score row once, row_len / weights, the [R, B] output."""
+    distinct gathered score row once, row_len / weights, the [R, B] output.
+    ``push`` (probe_push): also the B exclusion ids, and a threshold compare
+    beside each add."""
     import torch
 
     r = nbrs.shape[0]
@@ -366,8 +368,8 @@ def spmm_bound(nbrs, row_len, n, b):
     ids = nbrs[live_mask]
     live = int(ids.numel())
     distinct = int(torch.unique(ids).numel())
-    nbytes = live * 4 + r * 8 + distinct * b * 4 + r * b * 4
-    t, by = bound_ms(nbytes, live * b + r * b)
+    nbytes = live * 4 + r * 8 + distinct * b * 4 + r * b * 4 + push * b * 4
+    t, by = bound_ms(nbytes, live * b * (1 + push) + r * b)
     return t, by, nbytes
 
 
@@ -558,13 +560,30 @@ def plain_ms(fn):
 
 def small_probe_push_cases(gen, dev) -> None:
     """probe_push against its plain version: awkward n and B, thresholds,
-    exclusions of n (none) and in range, rows of sentinels, ids past n."""
+    exclusions of n (none) and in range, rows of sentinels, ids past n on
+    random tables read in full; then live-first tables (empty rows, rows of
+    C and C + 1 slots, a hub row over several chunks) read up to their
+    in-degree, at two chunk sizes, with a split row excluded.  Excluded
+    entries must be exactly zero, and a second launch must give the same
+    bits."""
     import torch
 
+    from repro_torch.kernels.ell_plan import CHUNK_SLOTS
     from repro_torch.kernels.probe_push.ops import probe_push
     from repro_torch.kernels.probe_push.ref import probe_push_ref
 
-    for dtype in (torch.float32, torch.bfloat16):
+    def check(nbrs, scores, w, excl, thr, row_len, cmp):
+        out = probe_push(nbrs, scores, w, excl, prune_thresh=thr, row_len=row_len)
+        cmp(out, probe_push_ref(nbrs, scores, w, excl, thr, row_len=row_len))
+        cols = torch.nonzero(excl < nbrs.shape[0]).flatten()
+        require(bool((out[excl[cols].long().clamp(min=0), cols] == 0).all()),
+                "excluded row kept mass")
+        require(torch.equal(out, probe_push(nbrs, scores, w, excl, prune_thresh=thr,
+                                            row_len=row_len)),
+                "probe_push: two runs on the same inputs differ in their bits")
+        return out
+
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
         cmp = fp32_err if dtype == torch.float32 else bf16_close
         for n, k, b in ((128, 4, 8), (100, 3, 8), (33, 700, 300), (7, 5, 1),
                         (1000, 16, 37)):
@@ -576,19 +595,32 @@ def small_probe_push_cases(gen, dev) -> None:
             excl = torch.randint(0, n + 1, (b,), generator=gen, device=dev).int()
             excl[0] = n  # excludes nothing
             for thr in (0.0, 0.3, 2.0):  # 2.0 is above every score
-                out = probe_push(nbrs, scores, w, excl, prune_thresh=thr)
-                cmp(out, probe_push_ref(nbrs, scores, w, excl, thr))
+                out = check(nbrs, scores, w, excl, thr, full_len(nbrs), cmp)
                 require(bool((out[n // 2] == 0).all()), "sentinel row pushed mass")
                 if thr == 2.0:
                     require(bool((out == 0).all()), "threshold above all kept mass")
-            cols = torch.nonzero(excl < n).flatten()
-            require(bool((out[excl[cols].long(), cols] == 0).all()),
-                    "excluded row kept mass")
         all_sent = torch.full((50, 4), 50, dtype=torch.int32, device=dev)
         s = torch.rand((50, 9), generator=gen, device=dev).to(dtype)
         out = probe_push(all_sent, s, torch.ones(50, device=dev),
-                         torch.full((9,), 50, dtype=torch.int32, device=dev))
+                         torch.full((9,), 50, dtype=torch.int32, device=dev),
+                         row_len=full_len(all_sent))
         require(bool((out == 0).all()), "all-sentinel table pushed mass")
+        # live slots first: rows of 0, C, C + 1, K and 2C + 3 slots
+        n, k, c = 1500, 1400, CHUNK_SLOTS
+        lens = torch.randint(0, 6, (n,), generator=gen, device=dev).tolist()
+        lens[3] = lens[9] = 0
+        lens[10], lens[11], lens[700], lens[701] = c, c + 1, k, 2 * c + 3
+        nbrs, deg = live_first(gen, dev, n, k, lens)
+        w = torch.rand(n, generator=gen, device=dev) + 0.1
+        for b in (1, 63, 64, 257):
+            scores = torch.rand((n, b), generator=gen, device=dev).to(dtype)
+            excl = torch.randint(-2, n + 3, (b,), generator=gen, device=dev).int()
+            excl[-1] = 701  # split rows excluded: the 2C + 3 row
+            excl[0] = 700  # and the hub row
+            for lens_, cs, thr in ((deg, CHUNK_SLOTS, 0.3),
+                                   (deg // 3, CHUNK_SLOTS, 0.0), (deg, 64, 0.5)):
+                with chunk_slots(cs):
+                    check(nbrs, scores, w, excl, thr, lens_, cmp)
 
 
 def flash_inputs(gen, dev, B, S, T, H, Hkv, dh, dtype):
@@ -662,8 +694,9 @@ def small_flash_cases(gen, dev) -> int:
 
 
 def probe_push_phase(h, params, gen) -> dict:
-    """probe_push on the HepPh ELL table at B = 64 (a threshold, exclusions
-    inside the table and of n): kernel against plain version, timings."""
+    """probe_push on the HepPh ELL table at B = 64, read up to the rows'
+    in-degree (a threshold, exclusions inside the table, one on the hub
+    row, and of n): kernel against plain version, timings, bounds."""
     import torch
 
     from repro_torch.kernels.probe_push.ops import probe_push
@@ -672,24 +705,35 @@ def probe_push_phase(h, params, gen) -> dict:
     eg = h.eg
     n, k, b = eg.n, eg.k_max, 64
     dev = eg.device
+    deg = eg.in_deg
     scores = torch.rand((n, b), generator=gen, device=dev)
     w = (eg.inv_in_deg * params.sqrt_c).contiguous()
     excl = torch.randint(0, n + 1, (b,), generator=gen, device=dev).int()
     excl[: b // 4] = n
+    excl[-1] = int(torch.argmax(deg))
     thr = 0.05
-    ms = time_ms(lambda: probe_push(eg.in_nbrs, scores, w, excl, prune_thresh=thr), 10)
-    out = probe_push(eg.in_nbrs, scores, w, excl, prune_thresh=thr)
-    p_ms, ref = plain_ms(lambda: probe_push_ref(eg.in_nbrs, scores, w, excl, thr))
+
+    def push(s):
+        return probe_push(eg.in_nbrs, s, w, excl, prune_thresh=thr, row_len=deg)
+
+    ms = time_ms(lambda: push(scores), 20)
+    out = push(scores)
+    p_ms, ref = plain_ms(lambda: probe_push_ref(eg.in_nbrs, scores, w, excl, thr,
+                                                row_len=deg))
     err = fp32_err(out, ref)
-    nbytes = n * k * 4 + n * b * 4 + n * 4 + b * 4 + n * b * 4
-    live_slots = int((eg.in_nbrs < n).sum())
-    bound, by = bound_ms(nbytes, live_slots * b * 2 + n * b)
+    require(torch.equal(push(scores), out),
+            "probe_push: two runs on the same inputs differ in their bits")
+    require(bool(out[excl[-1].long(), -1] == 0), "excluded hub row kept mass")
+    bound, by, nbytes = spmm_bound(eg.in_nbrs, deg, n, b, push=True)
+    full_bytes = n * k * 4 + n * b * 4 + n * 4 + b * 4 + n * b * 4
     sb = scores.to(torch.bfloat16)
-    bf_err = bf16_close(probe_push(eg.in_nbrs, sb, w, excl, prune_thresh=thr),
-                        probe_push_ref(eg.in_nbrs, sb, w, excl, thr))
+    bf_err = bf16_close(push(sb), probe_push_ref(eg.in_nbrs, sb, w, excl, thr,
+                                                 row_len=deg))
     log(f"probe_push full [{n}x{k}] B={b} thr={thr}: max_abs_err={err:.3e} "
-        f"(bf16 {bf_err:.3e}), kernel {ms:.4f} ms, plain {p_ms:.1f} ms, bound "
-        f"{bound:.4f} ms ({by}); no single PyTorch call computes it")
+        f"(bf16 {bf_err:.3e}), kernel {ms:.4f} ms, plain {p_ms:.1f} ms, "
+        f"live-slot bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB), "
+        f"full-scan bound {bound_ms(full_bytes, 0)[0]:.4f} ms; bits equal on a "
+        "second run; no single PyTorch call computes it")
     return dict(
         name="probe_push", route="cuda",
         source="src/repro_torch/kernels/csrc/probe_push.cu",
@@ -1181,7 +1225,7 @@ def main() -> int:
     widened = small_flash_cases(gen, dev)
     torch.cuda.synchronize()
     log("small kernel cases: ok (lane_probe fp32/bf16, spmm_ell fp32/fp16/bf16, "
-        "probe_push fp32/bf16, flash_attention fp32/bf16 on both routes; "
+        "probe_push fp32/fp16/bf16, flash_attention fp32/bf16 on both routes; "
         f"tensor-core cases needing tc_close's widening: {widened})")
     rows = {"flash_attention": flash_phase(gen, dev)}
 

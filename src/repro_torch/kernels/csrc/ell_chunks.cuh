@@ -1,5 +1,5 @@
 // Chunked ELL gather-sum: the executor of kernels/ell_plan.py's work plan,
-// shared by lane_probe.cu and spmm_ell.cu.
+// shared by lane_probe.cu, spmm_ell.cu and probe_push.cu.
 //
 // Row v reads only its slots k < row_len[v]; the plan cuts those ranges into
 // chunks and one block runs one chunk (blockIdx.x) over one tile of columns
@@ -27,16 +27,34 @@
 //   void begin_row(int v, Row&)       start the row's own loads (weight, and
 //                                     lane_probe's total / dep)
 //   void end_row(int v, Row&, acc)    weight, exclusion, stores; once per
-//                                     (row, column)
+//                                     (row, column), for a split row by its
+//                                     last-arriving block only
 // A row's own loads start before its gathers and its stores come after
 // them, so one memory latency covers both.
 #pragma once
 
 #include <climits>
 
-#include "ell_scan.cuh"  // kThreads, to_f32 / from_f32
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
 
 namespace ell {
+
+constexpr int kThreads = 256;  // threads per block (ell_plan.THREADS)
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // Blocks per SM the kernels are compiled for (__launch_bounds__): three
 // cap a thread at 85 registers, so 768 threads per SM keep gathers in

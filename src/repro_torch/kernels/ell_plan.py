@@ -1,9 +1,9 @@
 """Work plan of the ELL kernels: each row's live slots cut into chunks.
 
-``lane_probe.cu`` and ``spmm_ell.cu`` read slot k of row v only when
-``k < row_len[v]`` (callers pass ``in_deg``: live slots come first in every
-ELL table the port builds or accepts).  One thread block runs one chunk of
-the plan; there are two kinds:
+``lane_probe.cu``, ``spmm_ell.cu`` and ``probe_push.cu`` read slot k of
+row v only when ``k < row_len[v]`` (callers pass ``in_deg``: live slots
+come first in every ELL table the port builds or accepts).  One thread
+block runs one chunk of the plan; there are two kinds:
 
 * a **packed** chunk is a run of consecutive short rows (``row_len <=
   chunk_slots``), cut where the running cost ``sum(row_len + ROW_COST)``
@@ -42,7 +42,7 @@ Tensor = torch.Tensor
 CHUNK_SLOTS = 128
 CACHED_PLANS = 8
 ROW_COST = 4
-THREADS = 256  # threads per block of both kernels (kThreads in the .cu files)
+THREADS = 256  # threads per block of the three kernels (kThreads, ell_chunks.cuh)
 
 
 @dataclasses.dataclass

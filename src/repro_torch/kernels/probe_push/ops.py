@@ -1,31 +1,40 @@
-"""Public op: the fused PROBE push level, on the card or the CPU.
+"""Public op: the fused PROBE push level over the row extent, on the card or
+the CPU.
 
-Given CUDA tensors ``probe_push`` launches ``csrc/probe_push.cu`` (which
-replaces the Pallas kernel ``src/repro/kernels/probe_push/probe_push.py``,
-``_kernel``) for any n, K and B, or raises; given CPU tensors it runs the
-plain version (``ref.py``).  The reference wrapper's tile conditions
+    out[v, b] = w[v] · Σ_{k < row_len[v]} prune(scores[clip(nbrs[v, k], 0, n), b]),
+    then out[exclude[b], b] = 0 where exclude[b] < n
+
+It equals the Pallas kernel's function whenever each row's live slots come
+first (``row_len = in_deg``).  Given CUDA tensors ``probe_push`` launches
+``csrc/probe_push.cu`` (which replaces the Pallas kernel
+``src/repro/kernels/probe_push/probe_push.py``, ``_kernel``) over the chunk
+plan of ``row_len`` (``kernels/ell_plan.py``, shared with ``spmm_ell`` and
+``lane_probe`` through ``plan_of``), or raises; given CPU tensors it runs
+the plain version (``ref.py``).  The reference wrapper's tile conditions
 (``n % 128``, ``B % 8``) do not apply, and the kernel reads the unpadded
 ``[n, B]`` scores (a sentinel slot is skipped, so no zero row is needed).
-Storage is float32 or bfloat16; sums are fp32.  ``probe_push.launches``
-counts kernel launches.
+Storage is float32, float16 or bfloat16; sums are fp32.
+``probe_push.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ell_plan import launch_args, launch_layout, plan_of
 from repro_torch.kernels.probe_push.ref import probe_push_ref
 
 Tensor = torch.Tensor
 
-_SYMBOLS = {torch.float32: "probe_push_f32", torch.bfloat16: "probe_push_bf16"}
+_SYMBOLS = {torch.float32: "probe_push_f32", torch.float16: "probe_push_f16",
+            torch.bfloat16: "probe_push_bf16"}
 _fns: dict = {}
 
 
 def _kernel(dtype):
     fn = _fns.get(dtype)
     if fn is None:
-        fn = _build.bind(_build.load("probe_push"), _SYMBOLS[dtype], 5, 3,
+        fn = _build.bind(_build.load("probe_push"), _SYMBOLS[dtype], 12, 9,
                          n_floats=1)
         _fns[dtype] = fn
     return fn
@@ -38,11 +47,13 @@ def probe_push(
     exclude: Tensor,  # int32 [B]
     *,
     prune_thresh: float = 0.0,
+    row_len: Tensor,  # int32 [n], the rows' in-degree
 ) -> Tensor:
-    """prune(scores) pushed over the ELL table, weighted, columns excluded;
-    returns [n, B] in the scores' dtype."""
+    """prune(scores) pushed over slots k < row_len[v] of the ELL table,
+    weighted, columns excluded; returns [n, B] in the scores' dtype."""
     if scores.device.type == "cpu":
-        return probe_push_ref(nbrs, scores, weights, exclude, prune_thresh)
+        return probe_push_ref(nbrs, scores, weights, exclude, prune_thresh,
+                              row_len=row_len)
     if scores.device.type != "cuda":
         raise ValueError(f"probe_push: no kernel for device {scores.device}")
     if scores.dtype not in _SYMBOLS:
@@ -56,6 +67,7 @@ def probe_push(
         ("weights", weights, torch.float32, (n,)),
         ("exclude", exclude, torch.int32, (b,)),
         ("scores", scores, scores.dtype, (n, b)),
+        ("row_len", row_len, torch.int32, (n,)),
     ):
         if x.device != scores.device or x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(
@@ -67,10 +79,15 @@ def probe_push(
     out = torch.empty((n, b), dtype=scores.dtype, device=scores.device)
     if n == 0 or b == 0:
         return out
+    plan = plan_of(row_len, k)
+    vec, tc, tiles = launch_layout(b, scores.element_size(), scores.data_ptr(),
+                                   out.data_ptr())
+    pargs, scratch = launch_args(plan, b, tiles)  # scratch lives past the call
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     rc = _kernel(scores.dtype)(
         nbrs.data_ptr(), scores.data_ptr(), weights.data_ptr(),
-        exclude.data_ptr(), out.data_ptr(), n, k, b, float(prune_thresh), stream,
+        exclude.data_ptr(), out.data_ptr(), *pargs, k, n, b, vec, tc, tiles,
+        float(prune_thresh), stream,
     )
     _build.check(rc, "probe_push")
     probe_push.launches += 1

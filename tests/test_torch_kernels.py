@@ -30,7 +30,13 @@ from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
 from repro_torch.kernels.spmm_ell.ops import spmm_ell as t_spmm
 from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded as t_spmm_padded
 from repro_torch.kernels.spmm_ell.ref import spmm_ell_padded_ref, spmm_ell_ref
-from torch_port_helpers import needs_cuda, port_handle
+from torch_port_helpers import (
+    close_to_plain,
+    full_row_len,
+    live_first_table,
+    needs_cuda,
+    port_handle,
+)
 
 FIELDS = ("nbrs", "weights", "table", "dep", "total", "fin", "u_p", "u_prev",
           "thr")
@@ -56,13 +62,6 @@ def _level(rng, *, n=50, k=6, w=24, t=None, n_live=None):
     )
 
 
-def _full(nbrs):
-    """row_len reading every slot: the random tables here put sentinels
-    anywhere in a row, as repro's own kernel tests do."""
-    return torch.full((nbrs.shape[0],), nbrs.shape[1], dtype=torch.int32,
-                      device=nbrs.device)
-
-
 def _run_both(lv, *, row0=0, tab0=0, n_live, prune, bf16=False):
     """(port out, port tot, repro out, repro tot) as float32 numpy."""
     store = ("table", "dep", "total")
@@ -74,7 +73,7 @@ def _run_both(lv, *, row0=0, tab0=0, n_live, prune, bf16=False):
         targs = [a.to(torch.bfloat16) if f in store else a
                  for f, a in zip(FIELDS, targs)]
     kw = dict(row0=row0, tab0=tab0, n_live=n_live, prune=prune)
-    t_out, t_tot = t_lane(*targs, row_len=_full(targs[0]), **kw)
+    t_out, t_tot = t_lane(*targs, row_len=full_row_len(targs[0]), **kw)
     j_out, j_tot = j_lane(*jargs, **kw)
     want = torch.bfloat16 if bf16 else torch.float32
     assert t_out.dtype == t_tot.dtype == want
@@ -160,7 +159,7 @@ def test_lane_probe_plain_chunks(monkeypatch):
 
     lv = {f: torch.from_numpy(np.array(v))
           for f, v in _level(np.random.default_rng(7)).items()}
-    kw = dict(row0=0, tab0=0, n_live=50, prune=True, row_len=_full(lv["nbrs"]))
+    kw = dict(row0=0, tab0=0, n_live=50, prune=True, row_len=full_row_len(lv["nbrs"]))
     whole = lane_probe_level_ref(**lv, **kw)
     monkeypatch.setattr(ref, "GATHER_BUDGET_BYTES", 2 * 6 * 24 * 4)
     for a, b in zip(whole, lane_probe_level_ref(**lv, **kw)):
@@ -171,7 +170,7 @@ def test_cpu_wrappers_run_plain_versions():
     """On CPU tensors the wrappers are the plain versions and count no launch."""
     lv = {f: torch.from_numpy(np.array(v))
           for f, v in _level(np.random.default_rng(8)).items()}
-    full = _full(lv["nbrs"])
+    full = full_row_len(lv["nbrs"])
     kw = dict(row0=0, tab0=0, n_live=50, prune=True, row_len=full)
     before = (t_lane.launches, t_spmm_padded.launches)
     for a, b in zip(t_lane(**lv, **kw), lane_probe_level_ref(**lv, **kw)):
@@ -224,7 +223,7 @@ def test_spmm_ell_matches_repro(n, k, b, dtype):
                             jnp.asarray(weights)), np.float32)
     tn = torch.from_numpy(nbrs)
     out = t_spmm(tn, torch.from_numpy(scores), torch.from_numpy(weights),
-                 row_len=_full(tn))
+                 row_len=full_row_len(tn))
     assert out.dtype == torch.from_numpy(scores).dtype
     tol = 1e-5 if dtype == np.float32 else 2e-2
     np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
@@ -238,10 +237,10 @@ def test_spmm_ell_untiled_shapes():
                             jnp.asarray(weights)))
     tn = torch.from_numpy(nbrs)
     out = t_spmm(tn, torch.from_numpy(scores), torch.from_numpy(weights),
-                 row_len=_full(tn))
+                 row_len=full_row_len(tn))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
     vec = t_spmm(tn, torch.from_numpy(scores[:, 0].copy()),
-                 torch.from_numpy(weights), row_len=_full(tn))
+                 torch.from_numpy(weights), row_len=full_row_len(tn))
     np.testing.assert_allclose(vec.numpy(), ref[:, 0], atol=1e-6)
 
 
@@ -250,7 +249,7 @@ def test_spmm_ell_padded_and_bf16():
     padded = np.concatenate([scores, np.zeros((1, 16), np.float32)])
     ref = np.asarray(j_spmm_padded(jnp.asarray(nbrs), jnp.asarray(padded),
                                    jnp.asarray(weights)))
-    full = _full(torch.from_numpy(nbrs))
+    full = full_row_len(torch.from_numpy(nbrs))
     out = t_spmm_padded(torch.from_numpy(nbrs), torch.from_numpy(padded),
                         torch.from_numpy(weights), row_len=full)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
@@ -268,7 +267,7 @@ def test_spmm_ell_row_slice():
     """R < n rows against the full [n + 1, B] buffer (a slice of the table)."""
     nbrs, scores, weights = _ell(np.random.default_rng(11), 64, 5, 8, np.float32)
     scores = np.concatenate([scores, np.zeros((1, 8), np.float32)])
-    lens = _full(torch.from_numpy(nbrs))
+    lens = full_row_len(torch.from_numpy(nbrs))
     full = spmm_ell_padded_ref(*map(torch.from_numpy, (nbrs, scores, weights)),
                                row_len=lens)
     part = t_spmm_padded(torch.from_numpy(nbrs[10:30].copy()),
@@ -293,7 +292,7 @@ def test_lane_probe_kernel_on_card(bf16, n, w):
     args = {f: torch.from_numpy(np.array(v)).cuda() for f, v in lv.items()}
     for f in ("table", "dep", "total"):
         args[f] = args[f].to(dtype)
-    kw = dict(row0=0, tab0=0, n_live=n, prune=True, row_len=_full(args["nbrs"]))
+    kw = dict(row0=0, tab0=0, n_live=n, prune=True, row_len=full_row_len(args["nbrs"]))
     before = t_lane.launches
     out = t_lane(**args, **kw)
     assert t_lane.launches == before + 1
@@ -310,7 +309,7 @@ def test_spmm_ell_kernel_on_card(dtype):
     nbrs, scores, weights = _ell(np.random.default_rng(13), 300, 9, 70, np.float32)
     args = [torch.from_numpy(x).cuda() for x in (nbrs, scores, weights)]
     args[1] = args[1].to(dtype)
-    full = _full(args[0])
+    full = full_row_len(args[0])
     before = t_spmm_padded.launches
     out = t_spmm(*args, row_len=full)
     assert t_spmm_padded.launches == before + 1
@@ -546,31 +545,6 @@ def test_lane_probe_destinations(small_powerlaw):
 # ---------------------------------------------------------------------------
 
 
-def _live_first(rng, n, k, c=CHUNK_SLOTS):
-    """An [n, k] ELL table with live slots first: short rows, empty rows, a
-    hub row of k slots (several pieces), rows of exactly c and c + 1."""
-    deg = rng.integers(0, 6, n).astype(np.int32)
-    deg[[3, 9, n - 1]] = 0
-    deg[[10, 11, n // 2, n // 2 + 1]] = [c, c + 1, k, 2 * c + 3]
-    nbrs = np.full((n, k), n, np.int32)
-    for v in np.flatnonzero(deg):
-        nbrs[v, : deg[v]] = rng.integers(0, n, deg[v])
-    return nbrs, deg
-
-
-def _close_to_plain(out, ref, dtype):
-    """fp32: 1e-5 of the row sum (the plain version's terms are >= 0 here,
-    so the row sum is the output itself); bf16/fp16: one step."""
-    o, r = out.float(), ref.float()
-    if dtype == torch.float32:
-        torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-6)
-        return
-    bits = 7 if dtype == torch.bfloat16 else 10
-    step = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=1e-30))) - bits)
-    bad = (o - r).abs() > torch.maximum(step, torch.full_like(step, 1e-6))
-    assert not bool(bad.any()), float((o - r).abs().max())
-
-
 def _card_level(rng, nbrs, deg, w, dtype, *, row0=0, t=None):
     n_all = nbrs.shape[0] if t is None else t
     r = nbrs.shape[0]
@@ -598,7 +572,7 @@ def test_lane_probe_kernel_row_extent(dtype, w, monkeypatch):
     and a cut row extent; default and small chunks."""
     needs_cuda()
     rng = np.random.default_rng(30 + w)
-    nbrs, deg = _live_first(rng, 1200, 1100)
+    nbrs, deg = live_first_table(rng, 1200, 1100)
     lv, row_len = _card_level(rng, nbrs, deg, w, dtype)
     kw = dict(row0=0, tab0=0, n_live=1200, prune=True)
     cut = row_len // 2
@@ -608,8 +582,8 @@ def test_lane_probe_kernel_row_extent(dtype, w, monkeypatch):
         out, tot = t_lane(**lv, row_len=lens, **kw)
         assert t_lane.launches == before + 1
         ref_out, ref_tot = lane_probe_level_ref(**lv, row_len=lens, **kw)
-        _close_to_plain(out, ref_out, dtype)
-        _close_to_plain(tot, ref_tot, dtype)
+        close_to_plain(out, ref_out, dtype)
+        close_to_plain(tot, ref_tot, dtype)
 
 
 @pytest.mark.cuda
@@ -620,7 +594,7 @@ def test_lane_probe_kernel_row_slices(dtype):
     needs_cuda()
     rng = np.random.default_rng(31)
     n = 1200
-    nbrs, deg = _live_first(rng, n, 1100)
+    nbrs, deg = live_first_table(rng, n, 1100)
     row0, r = 500, 300  # holds the hub row n // 2
     lv, row_len = _card_level(rng, nbrs[row0:row0 + r].copy(), deg[row0:row0 + r].copy(),
                               64, dtype, row0=row0, t=n)
@@ -629,8 +603,8 @@ def test_lane_probe_kernel_row_slices(dtype):
         args = dict(lv, table=table)
         out, tot = t_lane(**args, row_len=row_len, **kw)
         ref_out, ref_tot = lane_probe_level_ref(**args, row_len=row_len, **kw)
-        _close_to_plain(out, ref_out, dtype)
-        _close_to_plain(tot, ref_tot, dtype)
+        close_to_plain(out, ref_out, dtype)
+        close_to_plain(tot, ref_tot, dtype)
 
 
 @pytest.mark.cuda
@@ -640,7 +614,7 @@ def test_spmm_ell_kernel_row_extent(dtype, b, monkeypatch):
     needs_cuda()
     rng = np.random.default_rng(40 + b)
     n, k = 1200, 1100
-    nbrs, deg = _live_first(rng, n, k)
+    nbrs, deg = live_first_table(rng, n, k)
     args = [torch.from_numpy(nbrs).cuda(),
             torch.from_numpy(rng.random((n + 1, b)).astype(np.float32)).cuda().to(dtype),
             torch.from_numpy(rng.uniform(0.1, 1.0, n).astype(np.float32)).cuda()]
@@ -652,11 +626,11 @@ def test_spmm_ell_kernel_row_extent(dtype, b, monkeypatch):
         before = t_spmm_padded.launches
         out = t_spmm_padded(*args, row_len=lens)
         assert t_spmm_padded.launches == before + 1
-        _close_to_plain(out, spmm_ell_padded_ref(*args, row_len=lens), dtype)
+        close_to_plain(out, spmm_ell_padded_ref(*args, row_len=lens), dtype)
     monkeypatch.undo()
     part = t_spmm_padded(args[0][590:610].contiguous(), args[1],
                          args[2][590:610].contiguous(), row_len=row_len[590:610])
-    _close_to_plain(part, spmm_ell_padded_ref(*args, row_len=row_len)[590:610], dtype)
+    close_to_plain(part, spmm_ell_padded_ref(*args, row_len=row_len)[590:610], dtype)
 
 
 @pytest.mark.cuda
@@ -665,7 +639,7 @@ def test_kernels_repeat_bit_for_bit(monkeypatch):
     piece order, not by float atomics."""
     needs_cuda()
     rng = np.random.default_rng(50)
-    nbrs, deg = _live_first(rng, 1200, 1100)
+    nbrs, deg = live_first_table(rng, 1200, 1100)
     lv, row_len = _card_level(rng, nbrs, deg, 256, torch.float32)
     monkeypatch.setattr(ell_plan, "CHUNK_SLOTS", 32)
     kw = dict(row0=0, tab0=0, n_live=1200, prune=False, row_len=row_len)
@@ -685,7 +659,7 @@ def test_lane_probe_kernel_in_place():
     call's bits; the buffer's extra row stays untouched."""
     needs_cuda()
     rng = np.random.default_rng(51)
-    nbrs, deg = _live_first(rng, 1200, 1100)
+    nbrs, deg = live_first_table(rng, 1200, 1100)
     lv, row_len = _card_level(rng, nbrs, deg, 256, torch.float32)
     kw = dict(row0=0, tab0=0, n_live=1200, prune=True, row_len=row_len)
     want_out, want_tot = t_lane(**lv, **kw)

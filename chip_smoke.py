@@ -24,7 +24,23 @@ Phases (any failure exits non-zero before the result line):
    agree, and one more drained batch is profiled;
 4. accuracy: node a of the paper's toy graph at c = 0.25 within the
    Thm-1/2 bound of the paper's Table 2;
-5. the LM path at Llama-3.2-1B's full width (random bf16 weights from a
+5. dynamic graphs on the HepPh stand-in.  The correctness stream
+   (capacity 2m, k_max = max in-degree + 128): 16 fused epochs
+   (``SimRankSession.epoch``) of 64 edge ops (32 deletes of live edges, 32
+   inserts; hub-row ops and a short row taken past CHUNK_SLOTS) and 8
+   top-k queries each.  After epochs 1, 8 and 16 both mirrors must equal a
+   rebuild from a host edge list that took the same ops, bit for bit, and
+   the epoch's top-k the rebuild's serve under the same seeds (at epoch 16
+   also with the kernel off); every applied mask equals the host replay's
+   and each changed batch builds one chunk plan, an unchanged one none.
+   The apply alone is timed on insert-only and mixed batches, and 200
+   inserts past the hub row's room force one regrow, after which the
+   mirrors and a serve, kernel on and off, are held against a rebuild
+   again.  Then the timed cell, on ``benchmarks/bench_dynamic.py``'s
+   traffic (insert-only batches of 128 random edges, 4 top-k queries an
+   epoch): the apply alone, update-only epochs (update->queryable), fused
+   epochs and query-only epochs, its end state held against a rebuild;
+6. the LM path at Llama-3.2-1B's full width (random bf16 weights from a
    seeded generator) through ``repro_torch.arch``: a 32,768-token prefill
    (``prefill_32k``, batch cut from 32 to 1) and 16 greedy decode steps over
    an 8 x 32,768 cache (``decode_32k``, batch cut from 128 to 8), with the
@@ -42,6 +58,7 @@ import json
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -72,6 +89,14 @@ LM_TOL = 3e-2
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 class SmokeFailure(RuntimeError):
@@ -951,11 +976,12 @@ def main_path(h, params) -> dict:
     return launches, nodes
 
 
-def profile(label: str, fn) -> dict:
+def profile(label: str, fn, host_rows: int = 0) -> dict:
     """Device time by kernel over one call of ``fn``, from torch.profiler;
     the busy share is the kernels' summed device time over the call's wall
-    time (one stream, so kernels do not overlap).  Returns each kernel
-    name's launch count."""
+    time (one stream, so kernels do not overlap).  ``host_rows`` > 0 also
+    logs that many ops with the most host time of their own.  Returns each
+    kernel name's launch count."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -979,6 +1005,14 @@ def profile(label: str, fn) -> dict:
         f"{len(rows)} kernel names")
     for key, ms, count in rows[:6]:
         log(f"  {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+    if host_rows:
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda e: -e.self_cpu_time_total)
+        log(f"  host time by op ({label}):")
+        for e in ops[:host_rows]:
+            log(f"  {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:6d} x  "
+                f"{e.key[:90]}")
     return {key: count for key, _, count in rows}
 
 
@@ -1020,7 +1054,505 @@ def toy_accuracy(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the LM path at full width
+# Phase 5: dynamic graphs at real size
+# ---------------------------------------------------------------------------
+
+DYN_EPOCHS = 16
+DYN_CHECKED = (1, 8, 16)  # epochs after which the mirrors meet a rebuild
+DYN_HEADROOM = 128  # ELL slots past the max in-degree: the hub row's room
+DYN_OVER = 200  # forced overflow: inserts into the hub row past its room
+# the timed cell's traffic, that of benchmarks/bench_dynamic.py: insert-only
+# batches of 128 uniform random edges, 4 top-k queries an epoch
+DYN_B = 128
+DYN_Q = 4
+DYN_REPS = 10  # batches of each timed kind
+
+
+class HostEdges:
+    """The live edge list on the host, updated by the coordinated path's
+    rules: a batch's deletes first (each removes the first copy of its pair,
+    one copy per pair a batch), then its inserts appended in op order while
+    both the COO buffer and the destination's ELL row have room."""
+
+    def __init__(self, src, dst, n: int, capacity: int, k_max: int):
+        import numpy as np
+
+        self.src = np.asarray(src, np.int32)
+        self.dst = np.asarray(dst, np.int32)
+        self.n, self.capacity, self.k_max = n, capacity, k_max
+        self.batches = 0  # batches that changed the graph
+
+    def in_deg(self):
+        import numpy as np
+
+        return np.bincount(self.dst, minlength=self.n)
+
+    def apply(self, s, d, ins):
+        """Apply one batch; returns its expected applied mask."""
+        import numpy as np
+
+        applied = np.zeros(len(s), bool)
+        gone, seen = [], set()
+        for i in np.flatnonzero(~ins):
+            pair = (int(s[i]), int(d[i]))
+            if pair in seen:
+                continue
+            seen.add(pair)
+            hit = np.flatnonzero((self.src == pair[0]) & (self.dst == pair[1]))
+            if len(hit):
+                gone.append(hit[0])
+                applied[i] = True
+        keep = np.ones(len(self.src), bool)
+        keep[gone] = False
+        self.src, self.dst = self.src[keep], self.dst[keep]
+        rows = self.in_deg()
+        m = len(self.src)
+        add = []
+        for i in np.flatnonzero(ins):
+            if rows[d[i]] < self.k_max and m < self.capacity:
+                rows[d[i]] += 1
+                m += 1
+                add.append(i)
+                applied[i] = True
+        self.src = np.concatenate([self.src, np.asarray(s)[add]]).astype(np.int32)
+        self.dst = np.concatenate([self.dst, np.asarray(d)[add]]).astype(np.int32)
+        self.batches += int(applied.any())
+        return applied
+
+    def rebuild(self, dev):
+        from repro_torch.api import GraphHandle
+
+        return GraphHandle.from_edges(self.src, self.dst, self.n,
+                                      capacity=self.capacity, k_max=self.k_max,
+                                      device=dev)
+
+
+def pick_deletes(rng, host: HostEdges, hub: int, k_hub: int, k_other: int):
+    """Distinct live pairs: ``k_hub`` from the hub row, ``k_other`` elsewhere."""
+    import numpy as np
+
+    out = []
+    for mask, k in ((host.dst == hub, k_hub), (host.dst != hub, k_other)):
+        idx = rng.permutation(np.flatnonzero(mask))
+        keys = host.src[idx].astype(np.int64) * host.n + host.dst[idx]
+        _, first = np.unique(keys, return_index=True)
+        out.append(idx[np.sort(first)[:k]])
+    idx = np.concatenate(out)
+    return host.src[idx], host.dst[idx]
+
+
+def mirrors_equal_rebuild(h, host: HostEdges, dev):
+    """Both mirrors of ``h`` bitwise equal to a rebuild from the host list;
+    returns the rebuilt handle."""
+    import torch
+
+    from repro_torch.graph import check_live_prefix
+
+    check_live_prefix(h.eg.in_nbrs, h.eg.in_deg, h.n)
+    rb = host.rebuild(dev)
+    for what, a, b in (("src", h.g.src, rb.g.src), ("dst", h.g.dst, rb.g.dst),
+                       ("COO in_deg", h.g.in_deg, rb.g.in_deg),
+                       ("out_deg", h.g.out_deg, rb.g.out_deg),
+                       ("in_nbrs", h.eg.in_nbrs, rb.eg.in_nbrs),
+                       ("ELL in_deg", h.eg.in_deg, rb.eg.in_deg)):
+        require(torch.equal(a, b), f"{what} differs from the rebuild")
+    require(h.num_edges == rb.num_edges == len(host.src),
+            f"edge count {h.num_edges} vs rebuild {rb.num_edges}")
+    require(h.version == host.batches,
+            f"version {h.version}, {host.batches} batches changed the graph")
+    return rb
+
+
+def serve_on_rebuild(rb, results, seeds, params, *, kernel_off=False) -> list:
+    """The epoch's top-k envelopes against a drain of the same queries, same
+    per-query seeds, on the rebuilt handle: with the kernel (a stale chunk
+    plan would show here) and, with ``kernel_off``, also with the plain COO
+    push (the kernel held against its plain version on the tables the
+    updates made).  Returns the max |diff| of each."""
+    from repro_torch.api import QuerySpec, SimRankSession
+
+    diffs = []
+    for use_kernel in (True, False)[: 1 + kernel_off]:
+        sess = SimRankSession(rb, walk_chunk=256, batch_q=len(results),
+                              top_k=50, own_graph=False, use_kernel=use_kernel)
+        for env, seed in zip(results, seeds):
+            sess.submit(QuerySpec(kind="topk", node=env.node, k=50, key=seed))
+        ref = sess.drain()
+        require(ref[0].walks_used == results[0].walks_used == params.n_r,
+                "walk budgets differ")
+        diffs.append(max(topk_agree(a, b, FP32_RTOL)
+                         for a, b in zip(results, ref)))
+    return diffs
+
+
+def kernel_counters() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.probe_push.ops import probe_push
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
+
+    return {"lane_probe": lane_probe_level, "spmm_ell": spmm_ell_padded,
+            "probe_push": probe_push, "flash_attention": flash_attention}
+
+
+def epoch_runner(sess, launches: dict):
+    """A function that runs one session epoch, synchronized, and returns it
+    with its applied mask, its wall ms and its chunk-plan builds; each
+    kernel's launches inside the epoch are added to ``launches``."""
+    import torch
+
+    from repro_torch.kernels.ell_plan import build_plan
+
+    counters = kernel_counters()
+    masks = []
+    batch_fn = type(sess.backend).epoch_batch
+    backend = weakref.ref(sess.backend)  # no cycle: `del sess` frees the graph
+
+    def recording(*a, **kw):  # keeps each epoch's applied mask
+        out = batch_fn(backend(), *a, **kw)
+        masks.append(out[0])
+        return out
+
+    sess.backend.epoch_batch = recording
+
+    def run():
+        masks.clear()
+        torch.cuda.synchronize()
+        builds = build_plan.builds
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        ep = sess.epoch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        for k, fn in counters.items():
+            launches[k] += fn.launches
+        return ep, masks[0], wall, build_plan.builds - builds
+
+    return run
+
+
+def timed_apply(h, s, d, ins, dev) -> tuple[float, float, object]:
+    """One batch through the coordinated apply: CUDA events around the
+    enqueue, which must not sync, and the host clock to the host read of the
+    results.  Returns (event ms, wall ms, applied mask)."""
+    import torch
+
+    from repro_torch.graph.dynamic import (
+        apply_update_batch_async,
+        make_update_batch,
+        settle,
+    )
+
+    batch = make_update_batch(s, d, ins, batch_size=len(s), n=h.n, device=dev)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    e0.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = apply_update_batch_async(h.g, h.eg, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    e1.record()
+    got = settle(h.g, h.eg, pending)
+    return e0.elapsed_time(e1), (time.perf_counter() - t) * 1e3, got.numpy()
+
+
+def dynamic_phase(dev) -> dict:
+    """The correctness stream: 16 fused epochs of 64 edge ops and 8 top-k
+    queries each on the HepPh stand-in, engineered to reach the apply's
+    paths (hub deletes, a short row pushed past CHUNK_SLOTS), the mirrors
+    and scores held against rebuilds, then one forced overflow regrown.
+    Returns the launches of every kernel inside the session's epochs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GraphHandle, SimRankSession
+    from repro_torch.core.walks import derive_seed
+    from repro_torch.graph import paper_dataset
+    from repro_torch.graph.dynamic import apply_update_batch, make_update_batch
+    from repro_torch.kernels.ell_plan import CHUNK_SLOTS, plan_of
+
+    launches = dict.fromkeys(kernel_counters(), 0)
+    torch.cuda.reset_peak_memory_stats()
+    src, dst, n = paper_dataset("hepph", 1.0)
+    m = len(src)
+    deg = np.bincount(dst, minlength=n)
+    hub = int(np.argmax(deg))
+    k_max = int(deg.max()) + DYN_HEADROOM
+    require(k_max == 34541 + 128, f"hepph k_max {k_max}")
+    t0 = time.perf_counter()
+    h = GraphHandle.from_edges(src, dst, n, capacity=2 * m, k_max=k_max,
+                               device=dev)
+    sess = SimRankSession(h, walk_chunk=256, batch_q=8, update_batch=64,
+                          top_k=50, seed=0)
+    del h  # the session's copy is the only one
+    h = sess.handle
+    torch.cuda.synchronize()
+    params = sess.params
+    require((params.n_r, params.c, params.eps_a) == (10840, 0.6, 0.1),
+            f"session params {params}")
+    log(f"dynamic phase: hepph n={n} m={m}, capacity {2 * m}, k_max {k_max} "
+        f"(hub {hub}: in-degree {deg[hub]}, {DYN_HEADROOM} free slots); ELL "
+        f"table {h.eg.in_nbrs.numel() * 4 / 1e9:.4f} GB, COO "
+        f"{2 * h.g.src.numel() * 4 / 1e6:.3f} MB; built and copied into the "
+        f"session in {time.perf_counter() - t0:.2f} s")
+    host = HostEdges(src, dst, n, 2 * m, k_max)
+    rng = np.random.default_rng(16)
+    # a short row that the stream takes past CHUNK_SLOTS (packed -> split)
+    short = int(rng.choice(np.flatnonzero((deg >= 1) & (deg <= 16))))
+    run_epoch = epoch_runner(sess, launches)
+
+    def queue(s, d, ins):
+        for flag in (False, True):  # deletes first: no insert->delete cut
+            sel = ins == flag
+            if sel.any():
+                sess.queue_update(s[sel], d[sel], insert=flag)
+
+    walls, plans = [], []
+    for e in range(1, DYN_EPOCHS + 1):
+        ds, dd = pick_deletes(rng, host, hub, 8, 24)
+        is_ = rng.integers(0, n, 32).astype(np.int32)
+        id_ = rng.integers(0, n, 32).astype(np.int32)
+        id_[:4] = hub
+        if e <= 8:
+            id_[4:24] = short
+        s = np.concatenate([ds, is_]).astype(np.int32)
+        d = np.concatenate([dd, id_]).astype(np.int32)
+        ins = np.arange(64) >= 32
+        want = host.apply(s, d, ins)
+        queue(s, d, ins)
+        live = np.flatnonzero(host.in_deg() >= 1)
+        tickets = [sess.submit(int(u)) for u in rng.choice(live, 8, replace=False)]
+        ep, got, wall, builds = run_epoch()
+        require(ep.updates_submitted == 64 and ep.updates_applied == want.sum()
+                and np.array_equal(got[:64], want),
+                f"epoch {e}: applied mask differs from the host replay")
+        require(ep.version == host.batches == e and not ep.overflow,
+                f"epoch {e}: version {ep.version} overflow {ep.overflow}")
+        require(len(ep.results) == 8 and all(t.envelope is r for t, r in
+                                             zip(tickets, ep.results)),
+                f"epoch {e}: results")
+        require(builds == 1, f"epoch {e}: {builds} plan builds, want 1")
+        plans.append(builds)
+        walls.append(wall)
+        if e in DYN_CHECKED:
+            rb = mirrors_equal_rebuild(h, host, dev)
+            seeds = [derive_seed(sess.seed, t.seq) for t in tickets]
+            diffs = serve_on_rebuild(rb, ep.results, seeds, params,
+                                     kernel_off=e == DYN_EPOCHS)
+            del rb
+            torch.cuda.empty_cache()
+            log(f"dynamic epoch {e}: mirrors bitwise equal to the rebuild "
+                f"(version {ep.version}, {h.num_edges} edges, hub in-degree "
+                f"{int(h.eg.in_deg[hub])}, row {short} in-degree "
+                f"{int(h.eg.in_deg[short])}); top-k vs the rebuild's serve, "
+                f"kernel on{', off' if len(diffs) > 1 else ''}: max |diff| "
+                + ", ".join(f"{x:.3e}" for x in diffs))
+        if e == 8:
+            plan = plan_of(h.eg.in_deg, k_max)
+            require(int(h.eg.in_deg[short]) > CHUNK_SLOTS
+                    and short in plan.long_rows.tolist(),
+                    f"row {short} did not become a split row")
+    log(f"correctness stream: {DYN_EPOCHS} epochs of 64 ops (32 deletes, 32 "
+        f"inserts) + 8 top-k queries; epoch wall ms {np.mean(walls):.2f} mean "
+        f"({min(walls):.2f} .. {max(walls):.2f}); plan builds by epoch {plans}")
+
+    # an epoch with queries and no update: nothing written, no new plan
+    tickets = [sess.submit(int(u)) for u in
+               rng.choice(np.flatnonzero(host.in_deg() >= 1), 8, replace=False)]
+    ep, _, wall, builds = run_epoch()
+    require(ep.updates_submitted == 0 and ep.version == DYN_EPOCHS
+            and builds == 0, f"query-only epoch: {ep}, {builds} builds")
+    log(f"query-only epoch: {wall:.2f} ms, 0 plan builds")
+
+    # the apply alone on this stream's 64-op batches, insert-only and mixed
+    for kind in ("insert-only", "mixed"):
+        ev, wl = [], []
+        for _ in range(8):
+            if kind == "mixed":
+                ds, dd = pick_deletes(rng, host, hub, 8, 24)
+                s = np.concatenate([ds, rng.integers(0, n, 32)])
+                d = np.concatenate([dd, rng.integers(0, n, 32)])
+                ins = np.arange(64) >= 32
+            else:
+                s, d = rng.integers(0, n, 64), rng.integers(0, n, 64)
+                ins = np.ones(64, bool)
+            want = host.apply(s, d, ins)
+            e_ms, w_ms, got = timed_apply(h, s, d, ins, dev)
+            require(np.array_equal(got, want), f"{kind} apply mask")
+            ev.append(e_ms)
+            wl.append(w_ms)
+        log(f"apply, {kind} 64-op batch: {np.mean(ev):.3f} ms (CUDA events, "
+            f"min {min(ev):.3f}; no host sync in the enqueue), "
+            f"{np.mean(wl):.3f} ms with the host read of the results")
+        # one more batch of the kind under the profiler: host or device?
+        host.apply(s, d, ins)
+        profile(f"apply, {kind} 64-op batch", lambda: apply_update_batch(
+            h.g, h.eg, make_update_batch(s, d, ins, batch_size=64, n=n,
+                                         device=dev)), host_rows=8)
+    require(h.version == host.batches, "version after the timed applies")
+
+    # forced overflow: DYN_OVER more copies of one edge than the hub row has
+    # room for; auto_regrow doubles K and retries the skips
+    room = k_max - int(host.in_deg()[hub])
+    n_over = room + DYN_OVER
+    s0 = int(rng.integers(0, n))
+    sess.queue_update(np.full(n_over, s0), np.full(n_over, hub))
+    eps, regrow_s, plans = [], None, []
+    while sess.pending[0]:
+        ep, got, wall, builds = run_epoch()
+        plans.append(builds)
+        k = ep.updates_submitted
+        want = host.apply(np.full(k, s0), np.full(k, hub), np.ones(k, bool))
+        require(np.array_equal(got[:k], want) and ep.version == host.batches,
+                f"overflow epoch {len(eps) + 1}: applied mask or version")
+        if ep.regrown:
+            regrow_s = wall / 1e3 - ep.latency_s
+            host.k_max, host.capacity = h.k_max, h.capacity
+        eps.append(ep)
+    regrown = [ep for ep in eps if ep.regrown]
+    require(len(regrown) == 1 and sess.stats.regrows == 1
+            and regrown[0].overflow and regrown[0].updates_requeued > 0,
+            f"{len(regrown)} regrown epochs, {sess.stats.regrows} regrows")
+    require(sum(ep.updates_applied for ep in eps) == n_over
+            and not sess.overflow and h is sess.handle,
+            "the forced overflow's inserts did not all apply")
+    log(f"forced overflow: {n_over} inserts of ({s0}, {hub}) ({room} fit), "
+        f"{len(eps)} update-only epochs, 1 regrow: K {k_max} -> {h.k_max}, "
+        f"capacity {2 * m} -> {h.capacity}, ELL table "
+        f"{h.eg.in_nbrs.numel() * 4 / 1e9:.4f} GB; regrow {regrow_s:.3f} s "
+        f"(the regrown epoch's wall minus its dispatch); version "
+        f"{eps[-1].version} after the retries; plan builds by epoch {plans} "
+        f"(update-only epochs serve nothing)")
+    rb = mirrors_equal_rebuild(h, host, dev)
+    tickets = [sess.submit(int(u)) for u in
+               rng.choice(np.flatnonzero(host.in_deg() >= 1), 8, replace=False)]
+    ep, _, wall, builds = run_epoch()
+    seeds = [derive_seed(sess.seed, t.seq) for t in tickets]
+    diffs = serve_on_rebuild(rb, ep.results, seeds, params, kernel_off=True)
+    require(builds == 1, f"{builds} plan builds on the regrown table")
+    log(f"after the regrow: mirrors bitwise equal to the rebuild, top-k of 8 "
+        f"queries vs the rebuild's serve, kernel on, off: max |diff| "
+        f"{diffs[0]:.3e}, {diffs[1]:.3e}; serve epoch {wall:.2f} ms")
+    del rb
+    peak = torch.cuda.max_memory_allocated()
+    log(f"correctness stream: peak device memory {peak / 1e9:.3f} GB; launches "
+        f"in the session's epochs {launches}; card: {card()}")
+    require(launches["lane_probe"] > 0, "the epochs launched no lane_probe")
+    del sess, h
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dynamic_traffic(dev) -> dict:
+    """The timed dynamic cell, on the traffic of benchmarks/bench_dynamic.py:
+    insert-only batches of DYN_B uniform random edges and DYN_Q top-k
+    queries an epoch, on the HepPh stand-in at the session defaults, with
+    bench_dynamic's headroom (capacity for every batch streamed, k_max =
+    max in-degree + 128).  Times the apply alone, update->queryable (an
+    update-only epoch) and the fused epoch, with a query-only epoch for the
+    serve; every mask is held against the host replay, and the end state's
+    mirrors and last top-k against a rebuild.  Returns the epochs' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GraphHandle, SimRankSession
+    from repro_torch.core.walks import derive_seed
+    from repro_torch.graph import paper_dataset
+
+    launches = dict.fromkeys(kernel_counters(), 0)
+    torch.cuda.reset_peak_memory_stats()
+    src, dst, n = paper_dataset("hepph", 1.0)
+    deg = np.bincount(dst, minlength=n)
+    capacity = len(src) + DYN_B * (3 * DYN_REPS + 1)
+    k_max = int(deg.max()) + 128
+    h = GraphHandle.from_edges(src, dst, n, capacity=capacity, k_max=k_max,
+                               device=dev)
+    sess = SimRankSession(h, walk_chunk=256, batch_q=DYN_Q,
+                          update_batch=DYN_B, top_k=50, seed=0)
+    del h
+    h = sess.handle
+    params = sess.params
+    host = HostEdges(src, dst, n, capacity, k_max)
+    rng = np.random.default_rng(1)
+    qnodes = [int(u) for u in np.random.default_rng(2).choice(
+        np.flatnonzero(deg > 0), DYN_Q, replace=False)]
+    run_epoch = epoch_runner(sess, launches)
+    ins = np.ones(DYN_B, bool)
+
+    def fresh():  # bench_dynamic's fresh_ops
+        return (rng.integers(0, n, DYN_B).astype(np.int32),
+                rng.integers(0, n, DYN_B).astype(np.int32))
+
+    def epoch(queries):
+        s, d = fresh()
+        want = host.apply(s, d, ins)
+        sess.queue_update(s, d)
+        tickets = [sess.submit(u) for u in queries]
+        ep, got, wall, builds = run_epoch()
+        require(np.array_equal(got[:DYN_B], want) and want.all()
+                and ep.version == host.batches
+                and len(ep.results) == len(queries),
+                f"timed epoch: mask, version {ep.version} or results")
+        return ep, tickets, wall, builds
+
+    epoch(qnodes)  # warm-up, outside the timed batches
+    ap, ap_wall = [], []
+    for _ in range(DYN_REPS):
+        s, d = fresh()
+        want = host.apply(s, d, ins)
+        e_ms, w_ms, got = timed_apply(h, s, d, ins, dev)
+        require(np.array_equal(got, want), "timed apply mask")
+        ap.append(e_ms)
+        ap_wall.append(w_ms)
+    lat = [epoch([])[2] for _ in range(DYN_REPS)]
+    walls, plans = [], []
+    for _ in range(DYN_REPS):
+        ep, tickets, wall, builds = epoch(qnodes)
+        walls.append(wall)
+        plans.append(builds)
+    require(plans == [1] * DYN_REPS, f"plan builds by epoch {plans}")
+    serve = []
+    for _ in range(3):  # the same queries on the same graph, no update
+        for u in qnodes:
+            sess.submit(u)
+        sep, _, wall, builds = run_epoch()
+        require(sep.updates_submitted == 0 and builds == 0, "query-only epoch")
+        serve.append(wall)
+    rb = mirrors_equal_rebuild(h, host, dev)
+    diffs = serve_on_rebuild(rb, ep.results,
+                             [derive_seed(sess.seed, t.seq) for t in tickets],
+                             params)
+    del rb
+    med = float(np.median(walls))
+    log(f"timed dynamic cell (bench_dynamic traffic: insert-only batches of "
+        f"{DYN_B} uniform random edges, {DYN_Q} top-k queries an epoch; hepph, "
+        f"capacity {capacity}, k_max {k_max}):")
+    log(f"  apply alone, {DYN_B}-op batch: median {np.median(ap):.3f} ms "
+        f"(CUDA events; {min(ap):.3f} .. {max(ap):.3f}), "
+        f"{np.median(ap_wall):.3f} ms with the host read of the results")
+    log(f"  update->queryable (update-only epoch, synchronized): median "
+        f"{np.median(lat):.3f} ms ({min(lat):.3f} .. {max(lat):.3f}); "
+        f"{DYN_B / np.median(lat) * 1e3:.0f} edges/s")
+    log(f"  epoch ({DYN_B} inserts + {DYN_Q} top-k queries): median {med:.2f} ms "
+        f"({min(walls):.2f} .. {max(walls):.2f}); serve alone (query-only "
+        f"epoch) median {np.median(serve):.2f} ms; apply share "
+        f"{np.median(ap) / med:.2%}; plan builds by epoch {plans}")
+    log(f"  end state equal to the rebuild (version {sess.version}, "
+        f"{h.num_edges} edges); last epoch's top-k vs the rebuild's serve: max "
+        f"|diff| {diffs[0]:.3e}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches {launches}; "
+        f"card: {card()}")
+    del sess, h
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LM path at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1204,11 +1736,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
+    log(card())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     dev = torch.device("cuda")
@@ -1244,12 +1772,15 @@ def main() -> int:
     toy_accuracy(dev)
     del h
     torch.cuda.empty_cache()
+    dyn_launches = dynamic_phase(dev)
+    for k, v in dynamic_traffic(dev).items():
+        dyn_launches[k] += v
     lm_launches = lm_phase(dev)
 
-    # each kernel's launches in the window of the path that runs it; probe_push
+    # each kernel's launches in the windows of the paths that run it; probe_push
     # is on no path (the reference calls it only from its tests)
     for name, row in rows.items():
-        row["launches"] = launches[name] + lm_launches[name]
+        row["launches"] = launches[name] + dyn_launches[name] + lm_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

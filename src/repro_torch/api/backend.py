@@ -2,11 +2,13 @@
 (port of ``repro.api.backend``, local backend only).
 
 The session owns specs, seeds, queues, tickets, stats and envelopes, and
-asks its ``Backend`` only to serve: ``serve_one`` for a one-shot
-single-node spec, ``serve_batch`` for a fused multi-query batch.
-:class:`LocalBackend` serves on the device of its :class:`GraphHandle`
-through the core entry points.  The sharded backend, the update stage and
-the fused epoch stage are not ported yet.
+asks its ``Backend`` to serve (``serve_one`` for a one-shot single-node
+spec, ``serve_batch`` for a fused multi-query batch), to apply updates
+(``apply_ops``, ``regrow``) and, where it sets ``supports_epoch``, to run
+the fused update->query epoch (``epoch_batch``).  :class:`LocalBackend`
+does all of it on the device of its :class:`GraphHandle` through the core
+entry points.  The sharded backend is not ported yet (ROADMAP queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -18,16 +20,30 @@ import torch
 
 from repro_torch.api.handle import GraphHandle
 from repro_torch.api.spec import QuerySpec
+from repro_torch.core.epoch import epoch_step
 from repro_torch.core.multisource import multi_source, multi_source_topk
 from repro_torch.core.params import ProbeSimParams
 from repro_torch.core.probesim import single_source, topk
+from repro_torch.graph.dynamic import UpdateBatch, make_update_batch
 
 
 @runtime_checkable
 class Backend(Protocol):
-    """What the session needs from an execution substrate."""
+    """What the session needs from an execution substrate.
+
+    Updates arrive as homogeneous sub-batches (one ``insert`` flag per
+    call, duplicate delete pairs already split by the session) and return
+    a per-op applied mask with ``GraphHandle.apply_batch`` semantics: an
+    unapplied insert means capacity overflow (sticky ``overflow``, recover
+    with ``regrow``), an unapplied delete means the edge was absent.
+    Backends that set ``supports_epoch`` also run the fused epoch
+    (``epoch_batch``: one padded ``UpdateBatch`` applied, then one query
+    batch served on the new buffers) and make their graph state exclusively
+    owned on request (``own_buffers``), since epochs write it in place.
+    """
 
     name: str
+    supports_epoch: bool
     variants: tuple[str, ...]
 
     @property
@@ -45,13 +61,26 @@ class Backend(Protocol):
 
     def batch_dispatch_label(self, q: int) -> str: ...
 
+    def epoch_dispatch_label(self) -> str: ...
+
     def serve_one(self, spec: QuerySpec, seed: int, *, variant: str,
                   n_r: int) -> dict: ...
 
     def serve_batch(self, kind: str, us, seeds, *, seed=None, k: int = 0,
                     n_r: int) -> tuple: ...
 
+    def apply_ops(self, src: np.ndarray, dst: np.ndarray,
+                  insert: bool) -> np.ndarray: ...
+
+    def regrow(self, **kwargs) -> None: ...
+
     def to_host_edges(self) -> tuple[np.ndarray, np.ndarray]: ...
+
+    def own_buffers(self) -> None: ...
+
+    def epoch_batch(self, batch: UpdateBatch, us, seeds, *, n_r: int,
+                    top_k: int, lanes: int | None = None,
+                    use_kernel: bool | None = None) -> tuple: ...
 
 
 class LocalBackend:
@@ -59,12 +88,16 @@ class LocalBackend:
 
     One-shot specs delegate to ``single_source``/``topk`` (so an explicit
     seed reproduces those calls exactly); batched specs run the fused
-    multi-query step.  ``use_kernel`` (default True) serves every probe
-    level through the lane-probe kernel on the ELL mirror;
-    ``kernel_dtype="bfloat16"`` stores its lane buffers in bf16.
+    multi-query step; updates go through the coordinated both-mirrors path
+    in pow-2 bucketed batches; epochs run ``core.epoch.epoch_step`` on the
+    handle's mirrors, in place.  ``use_kernel`` (default True) serves every
+    probe level through the lane-probe kernel on the ELL mirror;
+    ``kernel_dtype="bfloat16"`` stores its lane buffers in bf16 (queries
+    only: epochs serve in fp32, as the JAX package's do).
     """
 
     name = "local"
+    supports_epoch = True
     variants = ("auto", "telescoped", "tree", "reference")
 
     def __init__(
@@ -113,6 +146,10 @@ class LocalBackend:
     def batch_dispatch_label(self, q: int) -> str:
         return f"local[fused,Q={int(q)}]"
 
+    def epoch_dispatch_label(self) -> str:
+        """Envelope ``variant`` for epoch results (the fused local path)."""
+        return "telescoped"
+
     def to_host_edges(self) -> tuple[np.ndarray, np.ndarray]:
         return self.handle.to_host_edges()
 
@@ -152,3 +189,53 @@ class LocalBackend:
             return None, idx.cpu().numpy(), vals.cpu().numpy()
         est = multi_source(seed, g, eg, us, self.params, **common)
         return est.cpu().numpy(), None, None
+
+    # -- updates -------------------------------------------------------------
+
+    def apply_ops(self, src: np.ndarray, dst: np.ndarray,
+                  insert: bool) -> np.ndarray:
+        """Apply one homogeneous sub-batch through the coordinated
+        both-mirrors path, padded to the next power of two (as the JAX
+        package pads, so the two see the same batches)."""
+        bucket = 1 << (int(src.shape[0]) - 1).bit_length()
+        batch = make_update_batch(src, dst, insert, batch_size=bucket,
+                                  n=self.handle.n, device=self.handle.device)
+        return self.handle.apply_batch(batch).numpy()[: src.shape[0]]
+
+    def regrow(self, **kwargs) -> None:
+        self.handle.regrow(**kwargs)
+
+    # -- fused epochs --------------------------------------------------------
+
+    def own_buffers(self) -> None:
+        """Deep-copy the handle, so epochs write no tensor a caller holds."""
+        self.handle = self.handle.copy()
+
+    def epoch_batch(self, batch: UpdateBatch, us, seeds, *, n_r: int,
+                    top_k: int, lanes: int | None = None,
+                    use_kernel: bool | None = None) -> tuple:
+        """One fused local epoch (``core.epoch.epoch_step``) over the owned
+        mirrors, written in place.  ``us=None`` applies the batch only.
+        Returns ``(applied [B], est, idx, vals)`` as host arrays (est for
+        ``top_k == 0``, idx/vals otherwise; the unused side is None)."""
+        h = self.handle
+        if us is None:
+            return h.apply_batch(batch).numpy(), None, None, None
+        p = self.params
+        q = len(us)
+        h.g, h.eg, applied, est, idx, vals = epoch_step(
+            h.g, h.eg, batch, torch.as_tensor(np.asarray(us, np.int32)),
+            seeds=seeds,
+            n_r=n_r,
+            lanes_q=max(1, (lanes or self.walk_chunk) // q),
+            max_len=p.max_len,
+            sqrt_c=p.sqrt_c,
+            eps_p=p.eps_p,
+            eps_t=p.eps_t,
+            truncation_shift=p.truncation_shift,
+            use_kernel=self.use_kernel if use_kernel is None else use_kernel,
+            top_k=top_k,
+        )
+        if top_k:
+            return applied.numpy(), None, idx.cpu().numpy(), vals.cpu().numpy()
+        return applied.numpy(), est.cpu().numpy(), None, None

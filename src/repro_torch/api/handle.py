@@ -4,22 +4,36 @@
 ProbeSim needs the graph twice: the COO ``Graph`` is the *push*
 representation and the ELL ``EllGraph`` the *gather* representation (the
 kernels' table and the walk sampler).  The handle owns both plus the
-snapshot metadata (``version``, ``overflow``):
+snapshot metadata (``version``, ``overflow``) and the recovery path
+(``regrow``):
 
-    h = GraphHandle.from_edges(src, dst, n, device="cuda")
+    h = GraphHandle.from_edges(src, dst, n, capacity=m + 1024, k_max=64,
+                               device="cuda")
+    h.apply_batch(batch)      # coordinated update of BOTH mirrors, in place
+    if h.overflow:
+        h.regrow()            # compaction + 2x buffers, clears the flag
 
-Dynamic updates (``apply_batch``, ``regrow``) and mesh placement
-(``shard``) are not ported yet.
+``apply_batch`` writes the mirrors' tensors in place (``graph/dynamic.py``),
+so whoever holds ``h.g`` / ``h.eg`` sees the new snapshot; ``copy()`` is
+the way to keep an old one.  Mesh placement (``shard``) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch.graph.dynamic import (
+    UpdateBatch,
+    apply_update_batch,
+    regrow as _regrow,
+)
 from repro_torch.graph.structs import (
     EllGraph,
     Graph,
+    check_coo_prefix,
+    check_live_prefix,
     ell_from_edges,
     graph_from_edges,
     graph_to_host_edges,
@@ -65,19 +79,12 @@ class GraphHandle:
         )
 
     def copy(self) -> "GraphHandle":
-        """Deep device copy (buffers nobody else references)."""
+        """Deep device copy (buffers nobody else references).
 
-        def clone(x):
-            return dataclasses.replace(
-                x,
-                **{
-                    f.name: getattr(x, f.name).clone()
-                    for f in dataclasses.fields(x)
-                    if hasattr(getattr(x, f.name), "clone")
-                },
-            )
-
-        return GraphHandle(g=clone(self.g), eg=clone(self.eg))
+        ``SimRankSession`` copies its handle at construction because its
+        epochs write the mirrors in place.
+        """
+        return GraphHandle(g=_clone(self.g), eg=_clone(self.eg))
 
     @property
     def device(self):
@@ -113,17 +120,81 @@ class GraphHandle:
         """The live (non-padding) edge list on host."""
         return graph_to_host_edges(self.g)
 
-    def apply_batch(self, batch):
-        raise NotImplementedError(
-            "dynamic updates are not ported yet (ROADMAP queue 1 item 8)"
+    def apply_batch(self, batch: UpdateBatch):
+        """Apply a padded update batch to BOTH mirrors (coordinated path).
+
+        Writes the owned mirrors in place and returns the per-op ``applied``
+        mask (bool, on the CPU).  An insert applies iff both mirrors have
+        room; skips set the sticky ``overflow`` flag (never a silent drop):
+        see graph/dynamic.py for the full contracts.
+        """
+        self.g, self.eg, applied = apply_update_batch(self.g, self.eg, batch)
+        return applied
+
+    def regrow(
+        self,
+        *,
+        capacity: int | None = None,
+        k_max: int | None = None,
+        growth: float = 2.0,
+    ) -> None:
+        """Compact live edges and rebuild both mirrors with headroom.
+
+        Keeps ``version`` (a representation change is not a graph change)
+        and clears ``overflow`` on both mirrors.  The old mirrors are
+        released once the new ones are built.
+        """
+        self.g, self.eg = _regrow(
+            self.g, self.eg, capacity=capacity, k_max=k_max, growth=growth
         )
 
-    def regrow(self, **kwargs):
-        raise NotImplementedError(
-            "regrow is not ported yet (ROADMAP queue 1 item 8)"
-        )
+    def set_mirrors(
+        self,
+        g: Graph | None = None,
+        eg: EllGraph | None = None,
+        *,
+        copy: bool = True,
+    ) -> None:
+        """Replace owned mirror(s) with externally built ones, safely.
+
+        Validates ``n``, the device and the padding the in-place updates
+        add onto (``check_coo_prefix``, ``check_live_prefix``), and (by
+        default) own-copies the buffers: a handle whose mirrors are written
+        in place by epochs must never share tensors with the caller.  Direct
+        field assignment skips all of this; use it only with buffers the
+        handle may own outright.
+        """
+        for x, what in ((g, "COO"), (eg, "ELL")):
+            if x is None:
+                continue
+            if x.n != self.n:
+                raise ValueError(f"{what} mirror n={x.n} != handle n={self.n}")
+            if x.device != self.device:
+                raise ValueError(
+                    f"{what} mirror on {x.device}, handle on {self.device}"
+                )
+        if g is not None:
+            check_coo_prefix(g.src, g.dst, g.num_edges, g.n)
+        if eg is not None:
+            check_live_prefix(eg.in_nbrs, eg.in_deg, eg.n)
+        if g is not None:
+            self.g = _clone(g) if copy else g
+        if eg is not None:
+            self.eg = _clone(eg) if copy else eg
 
     def shard(self, **kwargs):
         raise NotImplementedError(
             "sharded placement is not ported yet (ROADMAP queue 1 item 12)"
         )
+
+
+def _clone(x):
+    """A mirror whose tensors are fresh copies (host fields as they are)."""
+    return dataclasses.replace(
+        x,
+        **{
+            f.name: getattr(x, f.name).clone()
+            for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)
+        },
+    )

@@ -9,12 +9,20 @@
         sess.submit(u)                                   # queued ...
     results = sess.drain(budget_walks=512)               # ... fused batches
 
+    sess.update(inserts=(new_src, new_dst))              # apply NOW
+    ep = sess.epoch(inserts=(s, d), queries=[u1, u2])    # fused upd->query
+
 * ``query(spec)`` — one-shot, delegates to ``single_source``/``topk``/
   ``multi_source*``, so a spec with an explicit ``key`` (an int seed)
   reproduces those calls under that seed;
 * ``submit``/``drain`` — the serving path: each query's seed is fixed at
   submit time, and fixed-size repeat-padded batches go through the fused
-  multi-query step; ``submit`` returns a :class:`QueryTicket`.
+  multi-query step; ``submit`` returns a :class:`QueryTicket`;
+* ``update``/``epoch`` — updates applied through the coordinated
+  both-mirrors path (``graph/dynamic.py``); ``epoch`` applies one update
+  batch and serves one query batch on the just-written mirrors
+  (``core/epoch.py``), and regrows on capacity overflow (nothing is ever
+  silently dropped).
 
 The §4.4 switch lives in :meth:`plan`: ``variant='auto'`` takes the
 prefix-tree probe when a single query's walk pool must share first-step
@@ -27,8 +35,7 @@ that budget.  Randomness: query ``seq`` of a session seeded ``seed`` draws
 from ``derive_seed(seed, seq)``, so batch composition never changes an
 answer.
 
-Not ported yet: adaptive specs (``epsilon``; ROADMAP queue 1 item 9),
-``update``/``queue_update``/``epoch``/``drain_epochs``/``regrow`` (item 8)
+Not ported yet: adaptive specs (``epsilon``; ROADMAP queue 1 item 9)
 and ``backend="sharded"`` (item 12); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -46,13 +53,16 @@ from repro_torch.api.handle import GraphHandle
 from repro_torch.api.spec import QuerySpec, ResultEnvelope, as_spec
 from repro_torch.core.params import abs_error_bound, make_params
 from repro_torch.core.walks import derive_seed
+from repro_torch.graph.dynamic import UpdateBatch, make_update_batch
 
 
 @dataclass
 class EngineStats:
-    """Dispatch counters: ``queries`` answered, fused serve ``steps``,
-    dispatch-layer ``retries``; the update/epoch counters stay 0 until
-    those paths are ported."""
+    """Dispatch counters: ``queries`` answered and edge ops applied
+    (``updates``); fused serve ``steps``, fused update->query ``epochs``,
+    capacity ``regrows`` and dispatch-layer ``retries``.  ``escalations``
+    and ``hub_hits`` stay 0 until adaptive specs are ported (ROADMAP queue
+    1 item 9)."""
 
     queries: int = 0
     updates: int = 0
@@ -95,6 +105,53 @@ class QueryTicket:
         return self.envelope
 
 
+@dataclass
+class UpdateReport:
+    """Outcome of one immediate ``update()`` call."""
+
+    submitted: int = 0
+    applied: int = 0
+    regrows: int = 0
+    # overflow-skipped inserts, as (src, dst, True) tuples: only filled
+    # with auto_regrow=False (with it, skips are regrown and retried here)
+    skipped: list = field(default_factory=list)
+    version: int = -1
+    overflow: bool = False
+
+
+@dataclass
+class EpochResult:
+    """Outcome of one fused update->query epoch."""
+
+    version: int  # graph snapshot id AFTER the update batch
+    overflow: bool  # sticky capacity signal (pre-regrow value)
+    regrown: bool  # True if auto_regrow ran after this epoch
+    updates_submitted: int  # live (non-padding) ops in the batch
+    updates_applied: int  # ops that changed the graph
+    updates_requeued: int  # overflow-skipped inserts pushed back for retry
+    # overflow-skipped inserts this epoch, as (src, dst, True) tuples.  With
+    # auto_regrow they are also re-queued (updates_requeued); without, the
+    # caller regrows and re-submits them: never silently lost
+    skipped_ops: list[tuple[int, int, bool]] = field(default_factory=list)
+    results: list[ResultEnvelope] = field(default_factory=list)
+    latency_s: float = 0.0
+
+
+def _occurrence_numbers(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
+    """occ[i] = #{j < i : (src[j], dst[j]) == (src[i], dst[i])}, vectorized:
+    stable-sort the ops by pair, number each op by its offset from its pair
+    group's start, scatter back to stream order."""
+    pairs = src.astype(np.int64) * np.int64(n + 1) + dst.astype(np.int64)
+    _, inv, counts = np.unique(pairs, return_inverse=True, return_counts=True)
+    if counts.max() <= 1:
+        return np.zeros(len(pairs), np.int64)
+    order = np.argsort(inv, kind="stable")  # stable: stream order per group
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    occ = np.empty(len(pairs), np.int64)
+    occ[order] = np.arange(len(pairs)) - np.repeat(starts, counts)
+    return occ
+
+
 def _not_ported(what: str, item: int):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item {item})"
@@ -105,12 +162,24 @@ class SimRankSession:
     """SimRank serving session over a local :class:`Backend`.
 
     ``walk_chunk`` is the total lane-column width of the fused serve step;
-    ``batch_q`` the fixed query width of ``drain()`` batches (short batches
-    are repeat-padded); ``top_k`` the default k.  ``use_kernel`` (default
-    True) runs every probe level through the lane-probe kernel on a CUDA
-    handle; ``kernel_dtype`` picks its storage type.  The session copies its
-    handle (``own_graph=True``).  One re-entrant lock serializes queue
-    mutation, seed assignment and ticket fills.
+    ``batch_q`` the fixed query width of ``drain()``/``epoch()`` batches
+    (short batches are repeat-padded); ``update_batch`` the fixed op width
+    of epoch update batches; ``top_k`` the default k.  ``use_kernel``
+    (default True) runs every probe level through the lane-probe kernel on
+    a CUDA handle; ``kernel_dtype`` picks its storage type.
+
+    With ``auto_regrow`` (default), capacity overflow triggers a host-side
+    compaction into 2x buffers and the skipped inserts are retried: no
+    update is ever lost; with ``auto_regrow=False`` skips are surfaced in
+    the ``UpdateReport``/``EpochResult`` for the caller to handle.
+
+    The session OWNS its graph (``own_graph=True`` copies the handle):
+    epochs write the mirrors in place.  ``own_graph=False`` shares the
+    caller's handle for read-mostly use, and ``epoch()`` refuses there.  A
+    ready :class:`Backend` that sets ``supports_epoch`` is asked to own-copy
+    its graph (``own_buffers``) at construction.  One re-entrant lock
+    serializes queue mutation, seed assignment, ticket fills and graph
+    mutation.
     """
 
     def __init__(
@@ -124,6 +193,8 @@ class SimRankSession:
         top_k: int = 50,
         seed: int = 0,
         batch_q: int = 8,
+        update_batch: int = 64,
+        auto_regrow: bool = True,
         use_kernel: bool = True,
         kernel_dtype: str = "float32",
         own_graph: bool = True,
@@ -138,6 +209,7 @@ class SimRankSession:
                     f"got {backend!r}"
                 )
             self.handle = handle.copy() if own_graph else handle
+            self._owns_graph = own_graph
             self.params = make_params(handle.n, c=c, eps_a=eps_a, delta=delta)
             self.backend: Backend = LocalBackend(
                 self.handle, params=self.params, walk_chunk=walk_chunk,
@@ -145,6 +217,11 @@ class SimRankSession:
             )
         elif isinstance(handle, Backend):
             self.backend = handle
+            # a backend with the epoch stage own-copies its graph NOW, so
+            # epochs never write tensors the caller still holds
+            self._owns_graph = bool(handle.supports_epoch)
+            if self._owns_graph:
+                handle.own_buffers()
             self.handle = getattr(handle, "handle", None)
             self.params = getattr(handle, "params", None) or make_params(
                 handle.n, c=c, eps_a=eps_a, delta=delta
@@ -158,9 +235,12 @@ class SimRankSession:
         self.walk_chunk = walk_chunk
         self.top_k = top_k
         self.batch_q = batch_q
+        self.update_batch = update_batch
+        self.auto_regrow = auto_regrow
         self.use_kernel = use_kernel
         self.seed = int(seed)
         self.query_queue: deque[tuple[QuerySpec, int, QueryTicket]] = deque()
+        self.update_queue: deque[tuple[int, int, bool]] = deque()
         self.stats = EngineStats()
         self._seq = 0  # submission counter -> per-query seed stream
         self._lock = threading.RLock()
@@ -178,11 +258,17 @@ class SimRankSession:
     @property
     def pending(self) -> tuple[int, int]:
         """(queued update ops, queued queries)."""
-        return 0, len(self.query_queue)
+        return len(self.update_queue), len(self.query_queue)
 
     def error_bound(self, n_r: int | None = None) -> float:
         """Thm 1+2 absolute-error bound at the effective walk count."""
         return abs_error_bound(self.params, n=self.backend.n, n_r=n_r)
+
+    def regrow(self, **kwargs) -> None:
+        """Manual capacity recovery (see :meth:`GraphHandle.regrow`)."""
+        with self._lock:
+            self.backend.regrow(**kwargs)
+            self.stats.regrows += 1
 
     def record_retry(self, n: int = 1) -> None:
         """Public hook for dispatch-layer retries (straggler policies)."""
@@ -397,19 +483,250 @@ class SimRankSession:
             if ticket.envelope is None:
                 raise RuntimeError("ticket is not queued in this session")
 
-    # -- not ported yet ------------------------------------------------------
+    # -- immediate updates ---------------------------------------------------
 
-    def update(self, inserts=None, deletes=None):
-        _not_ported("update", 8)
+    def _validate_ops(self, src: np.ndarray, dst: np.ndarray) -> None:
+        # validate HERE: out-of-range ids would be sentinel-masked to no-ops
+        # downstream and then mistaken for capacity-overflow skips, feeding
+        # an unbounded retry/regrow loop
+        n = self.backend.n
+        bad = (src < 0) | (src >= n) | (dst < 0) | (dst >= n)
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(
+                f"edge op ({src[i]}, {dst[i]}) out of range for n={n}"
+            )
 
-    def queue_update(self, src, dst, *, insert: bool = True):
-        _not_ported("queue_update", 8)
+    @staticmethod
+    def _as_ops(edges) -> tuple[np.ndarray, np.ndarray]:
+        src, dst = edges
+        return (np.asarray(src, np.int32).reshape(-1),
+                np.asarray(dst, np.int32).reshape(-1))
 
-    def epoch(self, *args, **kwargs):
-        _not_ported("epoch", 8)
+    def update(self, inserts=None, deletes=None) -> UpdateReport:
+        """Apply edge updates NOW through the coordinated both-mirrors path.
 
-    def drain_epochs(self, *args, **kwargs):
-        _not_ported("drain_epochs", 8)
+        ``inserts``/``deletes`` are ``(src, dst)`` array pairs; inserts
+        apply before deletes within one call.  Deleting duplicate (s, d)
+        pairs in one call removes one copy per op (multigraph semantics):
+        the batch path deletes at most one copy per batch, so duplicates
+        are split into per-occurrence sub-batches.  With ``auto_regrow``,
+        overflow-skipped inserts trigger a regrow and are retried until
+        applied; otherwise they are surfaced in ``UpdateReport.skipped``.
+        """
+        with self._lock:
+            rep = UpdateReport()
+            if inserts is not None:
+                s, d = self._as_ops(inserts)
+                self._validate_ops(s, d)
+                self._apply_now(s, d, True, rep)
+            if deletes is not None:
+                s, d = self._as_ops(deletes)
+                self._validate_ops(s, d)
+                if s.shape[0]:
+                    occ = _occurrence_numbers(s, d, self.backend.n)
+                    for k in range(int(occ.max()) + 1):
+                        m = occ == k
+                        self._apply_now(s[m], d[m], False, rep)
+            rep.version = self.version
+            rep.overflow = self.overflow
+            return rep
 
-    def regrow(self, **kwargs):
-        _not_ported("regrow", 8)
+    def _apply_now(
+        self, src: np.ndarray, dst: np.ndarray, insert: bool, rep: UpdateReport
+    ) -> None:
+        if src.shape[0] == 0:
+            return
+        rep.submitted += int(src.shape[0])
+        while True:
+            applied = self.backend.apply_ops(src, dst, insert)
+            n_app = int(applied.sum())
+            rep.applied += n_app
+            self.stats.updates += n_app
+            if not insert:
+                return  # unapplied deletes were genuinely absent: no retry
+            skipped = ~applied
+            if not skipped.any():
+                return
+            if not self.auto_regrow:
+                rep.skipped += [
+                    (int(s), int(d), True)
+                    for s, d in zip(src[skipped], dst[skipped])
+                ]
+                return
+            self.backend.regrow()  # 2x buffers per round: terminates
+            self.stats.regrows += 1
+            rep.regrows += 1
+            src, dst = src[skipped], dst[skipped]
+
+    # -- fused update->query epochs ------------------------------------------
+
+    def queue_update(self, src, dst, *, insert: bool = True) -> None:
+        """Enqueue edge ops for the next :meth:`epoch` step(s)."""
+        s, d = self._as_ops((src, dst))
+        self._validate_ops(s, d)
+        with self._lock:
+            for a, b in zip(s, d):
+                self.update_queue.append((int(a), int(b), insert))
+
+    def _pop_updates(self) -> tuple[list[tuple[int, int, bool]], UpdateBatch]:
+        # the batch path runs its delete phase before its insert phase and
+        # deletes at most one copy of a (s, d) pair per batch, so a batch
+        # must not hold (a) a delete of an edge inserted earlier in the SAME
+        # batch, nor (b) a second delete of the same pair: the batch is cut
+        # there (the delete waits for the next epoch), keeping stream order
+        ops: list[tuple[int, int, bool]] = []
+        inserted: set[tuple[int, int]] = set()
+        deleted: set[tuple[int, int]] = set()
+        while self.update_queue and len(ops) < self.update_batch:
+            s, d, ins = self.update_queue[0]
+            if not ins and ((s, d) in inserted or (s, d) in deleted):
+                break
+            (inserted if ins else deleted).add((s, d))
+            ops.append(self.update_queue.popleft())
+        batch = make_update_batch(
+            [s for s, _, _ in ops],
+            [d for _, d, _ in ops],
+            [i for _, _, i in ops] if ops else True,
+            batch_size=self.update_batch,
+            n=self.backend.n,
+            # on the graph's device; a backend without a handle moves it
+            device=self.handle.device if self.handle is not None else "cpu",
+        )
+        return ops, batch
+
+    def _pop_epoch_queries(self) -> tuple[int, list, QuerySpec]:
+        qs, live = self._pop_query_batch()  # same grouping/padding as drain
+        return live, qs, qs[0][0]
+
+    def epoch(
+        self,
+        *,
+        inserts=None,
+        deletes=None,
+        queries=None,
+        budget_walks: int | None = None,
+    ) -> EpochResult:
+        """Run ONE fused epoch: up to ``update_batch`` queued ops, then up to
+        ``batch_q`` queued queries served on the just-written mirrors.
+
+        ``inserts``/``deletes`` (``(src, dst)`` pairs) and ``queries``
+        (node ids or single-node specs) are enqueued first; anything past
+        one epoch's width stays queued (see :attr:`pending`; loop epochs to
+        drain).  Scores are those of the post-update snapshot.  A top-k
+        query batch runs the fused top-k epilogue, a single_source batch
+        returns full score vectors.  An epoch with no queued query applies
+        the batch only.
+        """
+        if not getattr(self.backend, "supports_epoch", False):
+            raise NotImplementedError(
+                f"the {self.backend.name!r} backend does not implement "
+                "epoch_batch; apply update() and drain() separately"
+            )
+        if not self._owns_graph:
+            # epochs write the mirrors in place; with own_graph=False they
+            # are the caller's
+            raise ValueError(
+                "epoch() requires an owned graph: construct the session "
+                "from a GraphHandle with own_graph=True (the default)"
+            )
+        with self._lock:
+            return self._epoch_locked(
+                inserts=inserts, deletes=deletes, queries=queries,
+                budget_walks=budget_walks,
+            )
+
+    def _epoch_locked(
+        self, *, inserts, deletes, queries, budget_walks
+    ) -> EpochResult:
+        if inserts is not None:
+            self.queue_update(*self._as_ops(inserts), insert=True)
+        if deletes is not None:
+            self.queue_update(*self._as_ops(deletes), insert=False)
+        if queries is not None:
+            for q in queries:
+                self.submit(q)
+        ops, batch = self._pop_updates()
+        p = self.params
+
+        t0 = time.time()
+        if self.query_queue:
+            live_q, qs, spec0 = self._pop_epoch_queries()
+            n_r = spec0.budget_walks or budget_walks or p.n_r
+            tk = spec0.k if spec0.kind == "topk" else 0
+            applied, est, idx, vals = self.backend.epoch_batch(
+                batch, [item[0].node for item in qs], [item[1] for item in qs],
+                n_r=n_r, top_k=tk,
+                lanes=self.walk_chunk, use_kernel=self.use_kernel,
+            )
+        else:
+            live_q, qs, spec0 = 0, [], None
+            n_r = budget_walks or p.n_r
+            applied, est, idx, vals = self.backend.epoch_batch(
+                batch, None, None,
+                n_r=n_r, top_k=0,
+                lanes=self.walk_chunk, use_kernel=self.use_kernel,
+            )
+        applied = np.asarray(applied)[: len(ops)]
+        dt = time.time() - t0
+
+        version = self.version
+        overflow = self.overflow
+        regrown = False
+        requeued = 0
+        # skipped inserts (applied == False); unapplied deletes were
+        # genuinely absent: those are neither retried nor surfaced
+        skipped = [op for op, ok in zip(ops, applied) if not ok and op[2]]
+        if skipped and self.auto_regrow:
+            # retry on the regrown buffers next epoch
+            for op in reversed(skipped):
+                self.update_queue.appendleft(op)
+            requeued = len(skipped)
+            self.backend.regrow()
+            self.stats.regrows += 1
+            regrown = True
+
+        bound = self.error_bound(n_r)
+        variant = self.backend.epoch_dispatch_label()
+        results = [
+            ResultEnvelope(
+                kind=spec0.kind,
+                node=item[0].node,
+                scores=None if est is None else est[i],
+                topk_nodes=None if est is not None else idx[i],
+                topk_scores=None if est is not None else vals[i],
+                walks_used=n_r,
+                latency_s=dt,
+                version=version,
+                error_bound=bound,
+                variant=variant,
+            )
+            for i, item in enumerate(qs[:live_q])
+        ]
+        for item, env in zip(qs[:live_q], results):
+            item[2].envelope = env
+        self.stats.epochs += 1
+        self.stats.steps += 1
+        self.stats.queries += live_q
+        self.stats.updates += int(applied.sum())
+        return EpochResult(
+            version=version,
+            overflow=overflow,
+            regrown=regrown,
+            updates_submitted=len(ops),
+            updates_applied=int(applied.sum()),
+            updates_requeued=requeued,
+            skipped_ops=skipped,
+            results=results,
+            latency_s=dt,
+        )
+
+    def drain_epochs(
+        self, *, budget_walks: int | None = None
+    ) -> list[EpochResult]:
+        """Run epochs until both queues are empty."""
+        with self._lock:
+            out: list[EpochResult] = []
+            while self.update_queue or self.query_queue:
+                out.append(self.epoch(budget_walks=budget_walks))
+            return out

@@ -5,8 +5,10 @@
     topk                approximate top-k SimRank (Def. 2)
     multi_source        fused multi-query serve path
     multi_source_topk   fused batched top-k (Def. 2)
+    epoch_step          fused update->query epoch (apply, then serve)
     sample_walks        sqrt(c)-walk generation (Def. 3)
 """
+from repro_torch.core.epoch import epoch_step
 from repro_torch.core.multisource import (
     fused_serve,
     multi_source,
@@ -42,6 +44,7 @@ __all__ = [
     "ProbeSimParams",
     "abs_error_bound",
     "derive_seed",
+    "epoch_step",
     "estimate_walk_reference",
     "fused_serve",
     "make_generator",

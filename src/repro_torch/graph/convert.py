@@ -3,9 +3,13 @@
 The JAX package keeps the same COO + ELL mirror pair (``Graph``,
 ``EllGraph``, ``GraphHandle``).  These constructors take that state as
 plain numpy arrays (``np.asarray`` of each field) and rebuild the port's
-mirrors from it verbatim — padding, slot order, ``version`` and
-``overflow`` included — so both packages can be run on the same graph
-snapshot, including one produced by dynamic updates.
+mirrors from it verbatim — slot order, ``version`` and ``overflow``
+included — so both packages can be run on the same graph snapshot,
+including one produced by dynamic updates.  Padding is the one exception:
+the JAX package's updates overwrite a padding slot, while the port's add
+onto the sentinel ``n`` they expect there, so any id above ``n`` becomes
+``n`` and the live-prefix rules (``check_coo_prefix``,
+``check_live_prefix``) are checked once, on ``device``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 from repro_torch.graph.structs import (
     EllGraph,
     Graph,
+    check_coo_prefix,
     check_live_prefix,
     resolve_device,
 )
@@ -36,19 +41,21 @@ def graph_from_arrays(
     overflow: bool = False,
     device="cuda",
 ) -> Graph:
-    """COO ``Graph`` from padded ``src``/``dst`` (sentinel ``n`` = padding).
+    """COO ``Graph`` from padded ``src``/``dst`` (ids ``>= n`` = padding).
 
-    Degrees and the edge count default to those of the live edges.
+    The live edges must be the first ``num_edges`` positions; degrees and
+    the edge count default to those of the live edges.  A buffer that
+    breaks the rule raises ``ValueError``.
     """
     dev = resolve_device(device)
-    src = np.asarray(src, np.int32).reshape(-1)
-    dst = np.asarray(dst, np.int32).reshape(-1)
+    src = np.minimum(np.asarray(src, np.int32).reshape(-1), n)
+    dst = np.minimum(np.asarray(dst, np.int32).reshape(-1), n)
     live = src < n
     if in_deg is None:
         in_deg = np.bincount(dst[live], minlength=n)[:n]
     if out_deg is None:
         out_deg = np.bincount(src[live], minlength=n)[:n]
-    return Graph(
+    g = Graph(
         src=_i32(src, dev),
         dst=_i32(dst, dev),
         in_deg=_i32(in_deg, dev),
@@ -59,6 +66,8 @@ def graph_from_arrays(
         version=int(version),
         overflow=bool(overflow),
     )
+    check_coo_prefix(g.src, g.dst, g.num_edges, g.n)
+    return g
 
 
 def ell_from_arrays(
@@ -72,12 +81,13 @@ def ell_from_arrays(
 ) -> EllGraph:
     """``EllGraph`` from an ``[n, k_max]`` in-neighbor table and degrees.
 
-    The table was built elsewhere, so the live-prefix rule the kernels rely
-    on (``in_nbrs[v, k] < n`` exactly when ``k < in_deg[v]``) is checked
+    The table was built elsewhere, so its ids above ``n`` become ``n`` and
+    the live-prefix rule the kernels and updates rely on (an id in
+    ``[0, n)`` exactly when ``k < in_deg[v]``, ``n`` after it) is checked
     once, on ``device``; a table that breaks it raises ``ValueError``.
     """
     dev = resolve_device(device)
-    in_nbrs = np.asarray(in_nbrs, np.int32)
+    in_nbrs = np.minimum(np.asarray(in_nbrs, np.int32), n)
     if in_nbrs.ndim != 2 or in_nbrs.shape[0] != n:
         raise ValueError(f"in_nbrs must be [n={n}, k_max], got {in_nbrs.shape}")
     table, deg = _i32(in_nbrs, dev), _i32(in_deg, dev)

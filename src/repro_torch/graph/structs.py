@@ -102,10 +102,11 @@ class EllGraph:
 
 
 def check_live_prefix(in_nbrs: Tensor, in_deg: Tensor, n: int) -> None:
-    """Raise unless ``in_nbrs[v, k] < n`` exactly when ``k < in_deg[v]`` and
-    ``0 <= in_deg[v] <= K``: the row extent the kernels read.  Checked on the
-    table's device in row chunks of about ``GATHER_BUDGET_BYTES``; one host
-    read."""
+    """Raise unless ``0 <= in_deg[v] <= K``, ``0 <= in_nbrs[v, k] < n`` for
+    ``k < in_deg[v]`` and ``in_nbrs[v, k] == n`` past it: the row extent the
+    kernels read, and the exact sentinel the in-place updates add onto.
+    Checked on the table's device in row chunks of about
+    ``GATHER_BUDGET_BYTES``; one host read."""
     r, k = in_nbrs.shape
     if in_deg.shape != (r,):
         raise ValueError(f"in_deg must be [{r}], got {tuple(in_deg.shape)}")
@@ -113,12 +114,34 @@ def check_live_prefix(in_nbrs: Tensor, in_deg: Tensor, n: int) -> None:
     slots = torch.arange(k, device=in_nbrs.device)
     step = max(1, GATHER_BUDGET_BYTES // max(1, k))
     for a in range(0, r, step):
-        live = in_nbrs[a : a + step] < n
-        bad |= (live != (slots[None, :] < in_deg[a : a + step, None])).any()
+        x = in_nbrs[a : a + step]
+        live = slots[None, :] < in_deg[a : a + step, None]
+        bad |= torch.where(live, (x < 0) | (x >= n), x != n).any()
     if bool(bad):
         raise ValueError(
-            "ELL table breaks the live-prefix rule: some row has a sentinel "
-            "before in_deg[v], a live id at or after it, or in_deg outside [0, K]"
+            "ELL table breaks the live-prefix rule: some row has a sentinel or "
+            "an id outside [0, n) before in_deg[v], anything but n at or after "
+            "it, or in_deg outside [0, K]"
+        )
+
+
+def check_coo_prefix(src: Tensor, dst: Tensor, num_edges: int, n: int) -> None:
+    """Raise unless both ends of every edge at a position ``< num_edges`` lie
+    in ``[0, n)`` and every later position holds ``n`` at both ends: the
+    padding the in-place updates write over.  One host read."""
+    cap = src.shape[0]
+    if dst.shape != (cap,) or not 0 <= num_edges <= cap:
+        raise ValueError(
+            f"COO buffers {tuple(src.shape)} / {tuple(dst.shape)} with "
+            f"num_edges {num_edges}"
+        )
+    live = torch.arange(cap, device=src.device) < num_edges
+    ok = torch.where(live, (src >= 0) & (src < n) & (dst >= 0) & (dst < n),
+                     (src == n) & (dst == n))
+    if not bool(ok.all()):
+        raise ValueError(
+            "COO buffer breaks the live-prefix rule: the live edges are not "
+            "exactly the first num_edges positions, or the padding is not n"
         )
 
 
@@ -206,9 +229,11 @@ def ell_from_edges(
 
 
 def graph_to_host_edges(g: Graph) -> tuple[np.ndarray, np.ndarray]:
-    """Extract the real (non-padding) edges to host numpy."""
+    """Extract the real (non-padding) edges to host numpy: copies, never
+    views of a CPU mirror, which updates write in place."""
     m = int(g.num_edges)
-    return g.src[:m].cpu().numpy(), g.dst[:m].cpu().numpy()
+    return (g.src[:m].to("cpu", copy=True).numpy(),
+            g.dst[:m].to("cpu", copy=True).numpy())
 
 
 # ---------------------------------------------------------------------------

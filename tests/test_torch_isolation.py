@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.kernels.probe_push.ops",
                 "repro_torch.kernels.probe_push.ref",
-                "repro_torch.kernels.ell_plan"):
+                "repro_torch.kernels.ell_plan", "repro_torch.graph.dynamic",
+                "repro_torch.core.epoch"):
         assert new in mods, new
     script = (
         "import sys\n"

@@ -165,17 +165,10 @@ def test_kernel_dtype_and_switches(powerlaw_handle):
 def test_not_ported_paths_raise(powerlaw_handle):
     s = TA.SimRankSession(powerlaw_handle)
     calls = [
-        lambda: s.update(inserts=([1], [2])),
-        lambda: s.queue_update([1], [2]),
-        lambda: s.epoch(),
-        lambda: s.drain_epochs(),
-        lambda: s.regrow(),
         lambda: s.query(TA.QuerySpec(node=1, epsilon=0.1)),
         lambda: s.submit(TA.QuerySpec(node=1, epsilon=0.1)),
         lambda: s.query(TA.QuerySpec(node=1, variant="randomized")),
         lambda: TA.SimRankSession(powerlaw_handle, backend="sharded"),
-        lambda: powerlaw_handle.apply_batch(None),
-        lambda: powerlaw_handle.regrow(),
         lambda: powerlaw_handle.shard(),
     ]
     for call in calls:
@@ -188,7 +181,9 @@ def test_backend_instance_and_errors(powerlaw_handle):
     be = TA.LocalBackend(h, params=make_params(h.n, eps_a=0.3), walk_chunk=64)
     assert isinstance(be, TA.Backend)
     s = TA.SimRankSession(be, batch_q=2)
-    assert s.backend is be and s.handle is h and s.params is be.params
+    # a backend with the epoch stage own-copies its handle for the session
+    assert s.backend is be and s.handle is be.handle and s.params is be.params
+    assert s.handle is not h and torch.equal(s.handle.eg.in_nbrs, h.eg.in_nbrs)
     assert be.batch_dispatch_label(3) == "local[fused,Q=3]"
     with pytest.raises(TypeError):
         TA.SimRankSession(object())

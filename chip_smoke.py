@@ -23,7 +23,16 @@ Phases (any failure exits non-zero before the result line):
    that window; then serial and kernel-off runs under the same seeds must
    agree, and one more drained batch is profiled;
 4. accuracy: node a of the paper's toy graph at c = 0.25 within the
-   Thm-1/2 bound of the paper's Table 2;
+   Thm-1/2 bound of the paper's Table 2; then ``accuracy_phase`` on the
+   HepPh stand-in: the exact Power-Method oracle (``simrank_power``, 55
+   iterations, first held against its numpy copy on a 300-node graph and
+   against Table 2), 16 adaptive single-source queries (``epsilon``) at
+   eps 0.1 and 0.05 drained in batches of 8, each within its certified
+   bound of the oracle, beside the same 16 served flat; an escalated query
+   bitwise equal to a one-shot query capped at its walks; 8 hub queries
+   drained twice, the second drain from the probe cache with no lane_probe
+   launch; MC, TSF, the truncated Power Method and the randomized probe
+   against the oracle, and one pooling evaluation of their top-50 lists;
 5. dynamic graphs on the HepPh stand-in.  The correctness stream
    (capacity 2m, k_max = max in-degree + 128): 16 fused epochs
    (``SimRankSession.epoch``) of 64 edge ops (32 deletes of live edges, 32
@@ -1054,6 +1063,369 @@ def toy_accuracy(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: adaptive accuracy and the oracles at real size
+# ---------------------------------------------------------------------------
+
+ACC_EPS = (0.1, 0.05)  # benchmarks/bench_abserror.py's quick epsilon sweep
+ACC_Q = 16
+ACC_BASELINE_Q = 3  # queries per baseline (benchmarks/bench_abserror.py's N_QUERIES)
+
+
+def precision_at_10(scores, truth_u, u: int, k: int = 10) -> float:
+    """|est top-k ∩ truth top-k| / k with u excluded, k cut to the count of
+    positive truths (benchmarks/bench_abserror.py's ``_precision_at_k``)."""
+    import numpy as np
+
+    s = np.asarray(scores, np.float64).copy()
+    t = np.asarray(truth_u, np.float64).copy()
+    s[u] = t[u] = -np.inf
+    kk = min(k, int((t > 0).sum()))
+    if kk == 0:
+        return 1.0
+    est = set(np.argsort(-s, kind="stable")[:kk].tolist())
+    return len(est & set(np.argsort(-t, kind="stable")[:kk].tolist())) / kk
+
+
+def max_err(est, truth_u, u: int) -> float:
+    """max over v != u of |est[v] - S[u, v]|."""
+    import numpy as np
+
+    e = np.abs(np.asarray(est, np.float64) - truth_u)
+    e[u] = 0.0
+    return float(e.max())
+
+
+def oracle_checks(dev) -> None:
+    """The Power Method on the card against its numpy copy (fp32, 1e-5) on a
+    300-node power-law graph, and node a of the toy graph against Table 2."""
+    import numpy as np
+
+    from repro_torch.api import GraphHandle
+    from repro_torch.core import simrank_power, simrank_power_host
+    from repro_torch.graph import TOY_TABLE2, powerlaw_graph, toy_graph
+    from repro_torch.graph.generators import TOY_NODES
+
+    src, dst, n = powerlaw_graph(300, 2400, seed=7)
+    s = simrank_power(GraphHandle.from_edges(src, dst, n, device=dev).g,
+                      c=0.6, iters=55).cpu().numpy()
+    err = float(np.abs(s - simrank_power_host(src, dst, n, c=0.6, iters=55)).max())
+    require(err <= 1e-5, f"simrank_power vs its numpy copy: {err}")
+    src, dst, n = toy_graph()
+    t = simrank_power(GraphHandle.from_edges(src, dst, n, device=dev).g,
+                      c=0.25, iters=55).cpu().numpy()[0]
+    terr = max(abs(float(t[i]) - TOY_TABLE2[ch]) for i, ch in enumerate(TOY_NODES))
+    require(terr <= 1e-3, f"toy graph vs Table 2: {terr}")  # printed to 3 digits
+    log(f"oracle on the card: 300-node power-law graph vs simrank_power_host "
+        f"max |diff| {err:.3e} (<= 1e-5); toy node a vs Table 2 {terr:.2e}")
+
+
+def adaptive_cell(h, truth, nodes, eps: float, launches: dict) -> dict:
+    """16 adaptive single-source queries (``epsilon = eps_a = eps``) drained
+    in batches of 8, every answer held against the oracle rows ``truth``
+    ([16, n], host); then the same 16 nodes as a flat drain.  Returns the
+    adaptive answers by node."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec, SimRankSession
+
+    counters = kernel_counters()
+    kw = dict(c=0.6, eps_a=eps, delta=0.01, walk_chunk=256, batch_q=8, seed=17,
+              own_graph=False)
+    sess = SimRankSession(h, initial_budget=64, confidence=0.99, **kw)
+    flat = sess.params.n_r
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u in nodes:
+        sess.submit(QuerySpec(kind="single_source", node=u, epsilon=eps))
+    envs = sess.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, fn in counters.items():
+        launches[k] += fn.launches
+    lane = counters["lane_probe"].launches  # the adaptive drain's own
+    batches = -(-len(nodes) // 8)
+    walks = np.array([e.walks_used for e in envs])
+    errs = np.array([max_err(e.scores, truth[i], u)
+                     for i, (u, e) in enumerate(zip(nodes, envs))])
+    bounds = np.array([e.certified_bound for e in envs])
+    violations = int((errs > bounds).sum())
+    precs = [precision_at_10(e.scores, truth[i], u)
+             for i, (u, e) in enumerate(zip(nodes, envs))]
+    certs = collections.Counter(e.certificate for e in envs)
+    ratio = flat / float(walks.mean())
+    log(f"adaptive eps={eps}: flat n_r {flat}; walks used mean "
+        f"{walks.mean():.1f}, max {walks.max()}; walks_saved_ratio {ratio:.3f}; "
+        f"rounds {sorted(collections.Counter(e.rounds for e in envs).items())}; "
+        f"escalations {sess.stats.escalations}; certificates {dict(certs)}; "
+        f"max |est - S| {errs.max():.4e} (mean {errs.mean():.4e}) vs certified "
+        f"bound max {bounds.max():.4f}; bound_violations {violations}; "
+        f"precision@10 {np.mean(precs):.4f}; drain {wall:.3f} s, "
+        f"{wall / batches * 1e3:.1f} ms per drained batch, {lane} lane_probe "
+        f"launches, {sess.stats.steps} serve dispatches")
+    require(len(envs) == len(nodes) and all(e.epsilon == eps for e in envs),
+            "adaptive envelopes")
+    require(all(np.isfinite(e.scores).all() and e.scores.shape == truth[0].shape
+                for e in envs), "adaptive scores not finite or misshapen")
+    require(violations == 0, f"{violations} queries broke their certified bound")
+    require(ratio >= 1.0 and walks.max() <= flat, f"walks_saved_ratio {ratio}")
+    require(lane > 0, "the adaptive drain launched no lane_probe")
+
+    off = SimRankSession(h, **kw)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u in nodes:
+        off.submit(QuerySpec(kind="single_source", node=u))
+    fenvs = off.drain()
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t0
+    for k, fn in counters.items():
+        launches[k] += fn.launches
+    ferrs = [max_err(e.scores, truth[i], u)
+             for i, (u, e) in enumerate(zip(nodes, fenvs))]
+    log(f"flat eps_a={eps}: n_r {flat} for each of {len(nodes)} queries, drain "
+        f"{fwall:.3f} s ({fwall / batches * 1e3:.1f} ms per batch; adaptive "
+        f"{wall / fwall:.3f}x of it), {counters['lane_probe'].launches} "
+        f"lane_probe launches; max |est - S| {max(ferrs):.4e} <= "
+        f"bound {fenvs[0].error_bound:.4f}")
+    require(max(ferrs) <= fenvs[0].error_bound, "flat drain beyond its bound")
+    return {u: e for u, e in zip(nodes, envs)}
+
+
+def bitwise_checks(h, nodes, launches: dict) -> None:
+    """On the card: an escalated query equals a one-shot query capped at its
+    cumulative walks, and 8 hub queries drained twice answer the second
+    time from the probe cache alone, with no lane_probe launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec, SimRankSession
+
+    counters = kernel_counters()
+    lane = counters["lane_probe"]
+    sess = SimRankSession(h, c=0.6, eps_a=0.1, walk_chunk=256, batch_q=8,
+                          seed=5, own_graph=False)
+    u = nodes[0]
+    before = lane.launches
+    env = sess.query(QuerySpec(kind="single_source", node=u, epsilon=0.1, key=7))
+    ref = sess.query(QuerySpec(kind="single_source", node=u, epsilon=0.0,
+                               budget_walks=env.walks_used, key=7))
+    require(ref.certificate == "budget" and ref.rounds == env.rounds
+            and ref.walks_used == env.walks_used, f"one-shot run {ref}")
+    require(np.array_equal(env.scores, ref.scores),
+            "escalated != one-shot: "
+            f"{float(np.abs(env.scores - ref.scores).max())}")
+    log(f"escalated == one-shot, bitwise: node {u}, {env.rounds} rounds, "
+        f"{env.walks_used} walks, certificate {env.certificate}")
+
+    hubs = sorted(sess.backend.hub_nodes(90.0))
+    pick = np.random.default_rng(3).choice(hubs, 8, replace=False).tolist()
+
+    def drain():
+        for v in pick:
+            sess.submit(QuerySpec(kind="single_source", node=v, epsilon=0.1))
+        return sess.drain()
+
+    first = drain()
+    hits, steps = sess.stats.hub_hits, sess.stats.steps
+    torch.cuda.synchronize()
+    mid = lane.launches
+    t0 = time.perf_counter()
+    second = drain()
+    wall = time.perf_counter() - t0
+    cached = lane.launches - mid
+    launches["lane_probe"] += lane.launches - before
+    rounds = max(e.rounds for e in first)
+    log(f"hub cache: {len(hubs)} hubs at the 90th percentile, 8 drained twice: "
+        f"second drain {sess.stats.hub_hits - hits} hub hits for {rounds} "
+        f"rounds, {sess.stats.steps - steps} serve dispatches, {cached} "
+        f"lane_probe launches, {wall * 1e3:.2f} ms")
+    require(cached == 0 and sess.stats.steps == steps,
+            f"the cached drain launched lane_probe {cached} times")
+    require(sess.stats.hub_hits - hits == rounds, "hub hits != rounds")
+    require(all(np.array_equal(a.scores, b.scores) for a, b in zip(first, second)),
+            "cached rows differ from the served ones")
+
+
+def profile_adaptive(h, nodes, launches: dict) -> None:
+    """One adaptive drained batch of 8 (eps 0.05, a new seed) under the
+    profiler: the device's busy share between the controller's rounds."""
+    from repro_torch.api import QuerySpec, SimRankSession
+
+    counters = kernel_counters()
+    sess = SimRankSession(h, c=0.6, eps_a=0.05, walk_chunk=256, batch_q=8,
+                          seed=18, own_graph=False)
+    for u in nodes[:8]:
+        sess.submit(QuerySpec(kind="single_source", node=u, epsilon=0.05))
+    before = {k: fn.launches for k, fn in counters.items()}
+    profile("adaptive drain of 8 (eps 0.05)", sess.drain, host_rows=6)
+    for k, fn in counters.items():
+        launches[k] += fn.launches - before[k]
+    log(f"profiled adaptive drain: {sess.stats.steps} serve dispatches, "
+        f"{counters['lane_probe'].launches - before['lane_probe']} lane_probe "
+        f"launches")
+
+
+def baselines(h, truth, nodes, adaptive: dict) -> None:
+    """Figure 4 on the card: MC (r 1,000), TSF (r_g 300, r_q 40, t 10), the
+    truncated Power Method (T 3) and the randomized probe (256 walks) on
+    three queries each against the oracle, then one pooling evaluation of
+    every system's top-50 list.  The queries are the three of the 16 whose
+    oracle rows hold the largest similarity to another node: on the HepPh
+    stand-in most rows hold none above 1e-3, and a baseline that answers 0
+    everywhere would look exact there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        abs_error_bound,
+        build_oneway_index,
+        evaluate_with_pool,
+        make_params,
+        mc_single_source,
+        simrank_truncated_single_source,
+        single_source,
+        tsf_single_source,
+    )
+
+    dev, n = h.device, h.n
+    sqrt_c = float(np.sqrt(0.6))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rand_p = make_params(n, c=0.6, eps_a=0.1, delta=0.01, n_r_override=256)
+    rand_bound = abs_error_bound(rand_p, n=n, n_r=256)
+    t0 = time.perf_counter()
+    index = build_oneway_index(gen, h.eg, r_g=300)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    systems = {
+        "mc_r1000": lambda u: mc_single_source(gen, h.eg, u, r=1000, max_len=16,
+                                               sqrt_c=sqrt_c),
+        "tsf_rg300": lambda u: tsf_single_source(gen, index, h.eg, u, r_q=40,
+                                                 t=10, c=0.6),
+        "topsim_T3": lambda u: simrank_truncated_single_source(h.g, u, c=0.6,
+                                                               iters=3),
+        "randomized_256": lambda u: single_source(
+            int(u), h.g, h.eg, u, rand_p, variant="randomized", walk_chunk=64),
+    }
+    off_diag = truth.copy()
+    off_diag[np.arange(len(nodes)), nodes] = 0.0
+    scale = off_diag.max(axis=1)
+    picked = np.argsort(-scale, kind="stable")[:ACC_BASELINE_Q].tolist()
+    log(f"baselines: max_v S[u, v] (v != u) over the 16 queries: median "
+        f"{np.median(scale):.3e}, max {scale.max():.3e}; queries "
+        f"{[nodes[i] for i in picked]} ({[float(f'{scale[i]:.4g}') for i in picked]})")
+    tops = {"probesim_adaptive": adaptive}
+    rows = []
+    for name, fn in systems.items():
+        errs, ts = [], []
+        for j, i in enumerate(picked):
+            u = nodes[i]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est = fn(u).cpu().numpy()
+            ts.append(time.perf_counter() - t0)
+            require(np.isfinite(est).all() and est.shape == (n,), f"{name} estimate")
+            errs.append(max_err(est, truth[i], u))
+            if j == 0:
+                tops[name] = est
+        rows.append((name, float(np.mean(errs)), max(errs), float(np.mean(ts))))
+    ours = [max_err(adaptive[nodes[i]].scores, truth[i], nodes[i]) for i in picked]
+    log(f"  {f'probesim_eps{ACC_EPS[0]}':16s} mean abs error {np.mean(ours):.4e}  (the "
+        f"adaptive drain above)")
+    for name, err, _, t in rows:
+        log(f"  {name:16s} mean abs error {err:.4e}  time per query {t * 1e3:9.2f} ms")
+    log(f"  one-way index (r_g 300): {index.numel() * 4 / 1e6:.2f} MB, built in "
+        f"{index_s * 1e3:.2f} ms; randomized probe bound at n_r 256: "
+        f"{rand_bound:.4f}")
+    require(rows[3][2] <= rand_bound, f"randomized error {rows[3][2]} > its bound")
+
+    u = nodes[picked[0]]
+    lists = {}
+    for name, est in tops.items():
+        s = np.asarray(est[u].scores if name == "probesim_adaptive" else est,
+                       np.float64).copy()
+        s[u] = -np.inf
+        lists[name] = np.argsort(-s, kind="stable")[:50].astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verdict = evaluate_with_pool(gen, h.eg, u, lists, 50, expert_r=10_000,
+                                 sqrt_c=sqrt_c, max_len=24)
+    pool_s = time.perf_counter() - t0
+    t = truth[picked[0]].copy()
+    t[u] = -np.inf
+    best = np.argsort(-t, kind="stable")[:50]
+    log(f"pooling evaluation, node {u}, top-50 lists, expert r 10,000 "
+        f"({pool_s:.2f} s):")
+    for name, v in verdict.items():
+        exact = len(set(lists[name].tolist()) & set(best.tolist())) / 50
+        log(f"  {name:18s} precision {v['precision']:.3f}  ndcg {v['ndcg']:.4f}  "
+            f"kendall {v['kendall']:+.4f}  (precision vs the oracle {exact:.3f})")
+        require(all(np.isfinite(x) for x in v.values()), f"pool verdict {name}")
+
+
+def accuracy_phase(h) -> dict:
+    """The exact oracle on the HepPh stand-in (55 Power-Method iterations on
+    the card), adaptive serving at eps 0.1 and 0.05 held against it, the
+    bitwise properties, and the Figure-4 baselines.  Returns each kernel's
+    launches in the phase's serving windows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec, SimRankSession
+    from repro_torch.core import simrank_power
+
+    launches = dict.fromkeys(kernel_counters(), 0)
+    t_phase = time.perf_counter()
+    oracle_checks(h.device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    s = simrank_power(h.g, c=0.6, iters=55)
+    torch.cuda.synchronize()
+    power_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    deg = h.eg.in_deg.cpu().numpy()
+    nodes = np.random.default_rng(17).choice(np.flatnonzero(deg >= 1), ACC_Q,
+                                             replace=False).tolist()
+    idx = torch.tensor(nodes, device=h.device)
+    truth = s[idx].double().cpu().numpy()
+    asym = float((s[idx] - s[:, idx].T).abs().max())
+    diag = s.diagonal()
+    require(bool(torch.isfinite(s).all()) and bool((diag == 1).all())
+            and float(s.min()) >= 0.0, "oracle not finite, diag != 1 or negative")
+    require(asym <= 1e-5, f"oracle rows vs columns differ by {asym}")
+    log(f"oracle: simrank_power on hepph n={h.n} m={h.g.num_edges}, 55 "
+        f"iterations, {power_s:.3f} s ({power_s / 55 * 1e3:.2f} ms an iteration),"
+        f" peak {peak / 1e9:.3f} GB above the graph; S[u] vs S[:, u] {asym:.2e}; "
+        f"card: {card()}")
+    del s, diag
+    torch.cuda.empty_cache()
+
+    # one untimed adaptive query first, so neither timed cell pays first-call
+    # costs (chunk plan, allocator growth) for the other
+    SimRankSession(h, walk_chunk=256, own_graph=False).query(
+        QuerySpec(kind="single_source", node=nodes[0], epsilon=0.1))
+    answers = {}
+    for eps in ACC_EPS:
+        answers[eps] = adaptive_cell(h, truth, nodes, eps, launches)
+    bitwise_checks(h, nodes, launches)
+    profile_adaptive(h, nodes, launches)
+    baselines(h, truth, nodes, answers[ACC_EPS[0]])
+    log(f"accuracy phase: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: dynamic graphs at real size
 # ---------------------------------------------------------------------------
 
@@ -1770,6 +2142,7 @@ def main() -> int:
     launches, nodes = main_path(h, params)
     profile_batch(h, nodes)
     toy_accuracy(dev)
+    acc_launches = accuracy_phase(h)
     del h
     torch.cuda.empty_cache()
     dyn_launches = dynamic_phase(dev)
@@ -1780,7 +2153,8 @@ def main() -> int:
     # each kernel's launches in the windows of the paths that run it; probe_push
     # is on no path (the reference calls it only from its tests)
     for name, row in rows.items():
-        row["launches"] = launches[name] + dyn_launches[name] + lm_launches[name]
+        row["launches"] = (launches[name] + acc_launches[name]
+                           + dyn_launches[name] + lm_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

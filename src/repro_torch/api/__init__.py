@@ -5,7 +5,8 @@ regrow, snapshot metadata); ``QuerySpec`` / ``ResultEnvelope`` are the
 typed request/response pair; ``SimRankSession`` serves one-shot queries,
 queued fused batches (``submit`` -> ``QueryTicket``; ``drain``), immediate
 updates (``update`` -> ``UpdateReport``) and fused update->query epochs
-(``epoch`` -> ``EpochResult``) through ``LocalBackend``.
+(``epoch`` -> ``EpochResult``) through ``LocalBackend``; a spec with
+``epsilon`` set escalates its walks until a certificate meets it.
 """
 from repro_torch.api.backend import Backend, LocalBackend
 from repro_torch.api.handle import GraphHandle

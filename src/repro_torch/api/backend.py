@@ -5,10 +5,11 @@ The session owns specs, seeds, queues, tickets, stats and envelopes, and
 asks its ``Backend`` to serve (``serve_one`` for a one-shot single-node
 spec, ``serve_batch`` for a fused multi-query batch), to apply updates
 (``apply_ops``, ``regrow``) and, where it sets ``supports_epoch``, to run
-the fused update->query epoch (``epoch_batch``).  :class:`LocalBackend`
-does all of it on the device of its :class:`GraphHandle` through the core
-entry points.  The sharded backend is not ported yet (ROADMAP queue 1
-item 12).
+the fused update->query epoch (``epoch_batch``), and to name the graph's
+hub nodes (``hub_nodes``) for the accuracy controller's probe cache.
+:class:`LocalBackend` does all of it on the device of its
+:class:`GraphHandle` through the core entry points.  The sharded backend is
+not ported yet (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -25,6 +26,21 @@ from repro_torch.core.multisource import multi_source, multi_source_topk
 from repro_torch.core.params import ProbeSimParams
 from repro_torch.core.probesim import single_source, topk
 from repro_torch.graph.dynamic import UpdateBatch, make_update_batch
+
+
+def _hub_nodes_from_degrees(deg: np.ndarray, percentile: float) -> frozenset:
+    """Nodes at or above the ``percentile``-th in-degree among positive
+    degrees — the hub set the accuracy controller's probe cache targets
+    (PRSim's power-law analysis: a few heavy hitters absorb most query
+    traffic on skewed graphs, so their probe rows are worth sharing)."""
+    if not 0.0 <= percentile <= 100.0:
+        raise ValueError(f"percentile must be in [0, 100], got {percentile}")
+    deg = np.asarray(deg)
+    pos = deg[deg > 0]
+    if pos.size == 0:
+        return frozenset()
+    thr = max(float(np.percentile(pos, percentile)), 1.0)
+    return frozenset(int(u) for u in np.flatnonzero(deg >= thr))
 
 
 @runtime_checkable
@@ -56,6 +72,8 @@ class Backend(Protocol):
     def overflow(self) -> bool: ...
 
     def host_in_degrees(self) -> np.ndarray: ...
+
+    def hub_nodes(self, percentile: float) -> frozenset: ...
 
     def dispatch_label(self, variant: str) -> str: ...
 
@@ -98,7 +116,7 @@ class LocalBackend:
 
     name = "local"
     supports_epoch = True
-    variants = ("auto", "telescoped", "tree", "reference")
+    variants = ("auto", "telescoped", "tree", "reference", "randomized")
 
     def __init__(
         self,
@@ -121,6 +139,7 @@ class LocalBackend:
         self.walk_chunk = walk_chunk
         self.use_kernel = use_kernel
         self.kernel_dtype = kernel_dtype
+        self._hubs: tuple | None = None  # ((version, percentile), frozenset)
 
     # -- snapshot state ------------------------------------------------------
 
@@ -138,6 +157,16 @@ class LocalBackend:
 
     def host_in_degrees(self) -> np.ndarray:
         return self.handle.eg.in_deg.cpu().numpy()
+
+    def hub_nodes(self, percentile: float) -> frozenset:
+        """High in-degree hub set, cached per (graph version, percentile):
+        one device read per graph version."""
+        ck = (self.version, float(percentile))
+        if self._hubs is None or self._hubs[0] != ck:
+            self._hubs = (
+                ck, _hub_nodes_from_degrees(self.host_in_degrees(), percentile)
+            )
+        return self._hubs[1]
 
     def dispatch_label(self, variant: str) -> str:
         """Envelope ``variant`` field: the variant, verbatim."""

@@ -24,6 +24,11 @@
   (``core/epoch.py``), and regrows on capacity overflow (nothing is ever
   silently dropped).
 
+A spec with ``epsilon`` set runs the adaptive accuracy controller
+(``core/accuracy.py``) through ``query`` or ``submit``/``drain``: each
+escalation round is one fused ``serve_batch`` of the round's walks, and the
+answer carries the certificate that stopped it.
+
 The §4.4 switch lives in :meth:`plan`: ``variant='auto'`` takes the
 prefix-tree probe when a single query's walk pool must share first-step
 prefixes heavily (n_r >= 8 x in-degree(u)), the fused telescoped path
@@ -35,8 +40,8 @@ that budget.  Randomness: query ``seq`` of a session seeded ``seed`` draws
 from ``derive_seed(seed, seq)``, so batch composition never changes an
 answer.
 
-Not ported yet: adaptive specs (``epsilon``; ROADMAP queue 1 item 9)
-and ``backend="sharded"`` (item 12); each raises ``NotImplementedError``.
+Not ported yet: ``backend="sharded"`` (ROADMAP queue 1 item 12) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +56,12 @@ import numpy as np
 from repro_torch.api.backend import Backend, LocalBackend
 from repro_torch.api.handle import GraphHandle
 from repro_torch.api.spec import QuerySpec, ResultEnvelope, as_spec
+from repro_torch.core.accuracy import (
+    AccuracyController,
+    ProbeCache,
+    escalation_schedule,
+)
+from repro_torch.core.multisource import query_seeds
 from repro_torch.core.params import abs_error_bound, make_params
 from repro_torch.core.walks import derive_seed
 from repro_torch.graph.dynamic import UpdateBatch, make_update_batch
@@ -60,9 +71,10 @@ from repro_torch.graph.dynamic import UpdateBatch, make_update_batch
 class EngineStats:
     """Dispatch counters: ``queries`` answered and edge ops applied
     (``updates``); fused serve ``steps``, fused update->query ``epochs``,
-    capacity ``regrows`` and dispatch-layer ``retries``.  ``escalations``
-    and ``hub_hits`` stay 0 until adaptive specs are ported (ROADMAP queue
-    1 item 9)."""
+    capacity ``regrows`` and dispatch-layer ``retries``; ``escalations``
+    counts accuracy-controller rounds beyond the first (extra dispatches
+    adaptive queries paid), ``hub_hits`` whole serve dispatches skipped
+    because every row of an escalation round was in the hub probe cache."""
 
     queries: int = 0
     updates: int = 0
@@ -180,6 +192,15 @@ class SimRankSession:
     its graph (``own_buffers``) at construction.  One re-entrant lock
     serializes queue mutation, seed assignment, ticket fills and graph
     mutation.
+
+    Adaptive specs escalate from ``initial_budget`` walks at ``confidence``
+    (``core/accuracy.py``).  Queries on hub nodes (in-degree at or above
+    the ``hub_percentile``-th) without a pinned ``key`` ride node-keyed
+    streams, seeded ``derive_seed(seed, 0x5B5B, node)``: a longer path, so
+    no submit-order seed ``derive_seed(seed, seq)`` (seq < 2^32) equals it.  Their
+    per-round rows go through a probe cache of ``probe_cache_entries``
+    rows, cleared on every graph version; ``regrow`` keeps the version, so
+    after it a cached row scores the same graph from other walks.
     """
 
     def __init__(
@@ -199,6 +220,10 @@ class SimRankSession:
         kernel_dtype: str = "float32",
         own_graph: bool = True,
         backend: str | Backend = "local",
+        initial_budget: int = 64,
+        confidence: float = 0.99,
+        hub_percentile: float = 90.0,
+        probe_cache_entries: int = 256,
     ):
         if isinstance(handle, GraphHandle):
             if backend == "sharded":
@@ -231,6 +256,14 @@ class SimRankSession:
                 "SimRankSession takes a GraphHandle — build one with "
                 "GraphHandle.from_edges(src, dst, n, device=...)"
             )
+        if initial_budget < 1:
+            raise ValueError("initial_budget must be >= 1")
+        if not 0.0 < confidence < 1.0:
+            raise ValueError("confidence must be in (0, 1)")
+        self.initial_budget = int(initial_budget)
+        self.confidence = float(confidence)
+        self.hub_percentile = float(hub_percentile)
+        self._probe_cache = ProbeCache(probe_cache_entries)
         self._plan_deg: tuple[int, np.ndarray] | None = None
         self.walk_chunk = walk_chunk
         self.top_k = top_k
@@ -290,8 +323,6 @@ class SimRankSession:
         """Resolve ``variant='auto'`` — the §4.4 best-of-both-worlds switch."""
         if spec.variant != "auto":
             if spec.variant not in self.backend.variants:
-                if spec.variant == "randomized":
-                    _not_ported("variant='randomized'", 10)
                 raise ValueError(
                     f"variant {spec.variant!r} is not available on the "
                     f"{self.backend.name!r} backend "
@@ -317,12 +348,26 @@ class SimRankSession:
         budget_walks: int | None = None,
         deadline_s: float | None = None,
     ) -> ResultEnvelope:
-        """Serve one spec now, bypassing the queue."""
+        """Serve one spec now, bypassing the queue.
+
+        A spec with ``epsilon`` set runs the adaptive accuracy controller:
+        escalate geometrically from ``initial_budget`` until a certificate
+        meets epsilon, capped at ``budget_walks`` (or the flat Thm-1
+        budget).  ``deadline_s`` clamps escalation (adaptive specs only): a
+        miss degrades to the best-so-far answer with
+        ``certificate='deadline'``; it never raises.
+        """
         spec = as_spec(spec, default_k=self.top_k)
         if budget_walks is not None and spec.budget_walks is None:
             spec = dataclasses.replace(spec, budget_walks=budget_walks)
-        if spec.epsilon is not None or deadline_s is not None:
-            _not_ported("adaptive accuracy (epsilon / deadline_s)", 9)
+        if spec.epsilon is not None:
+            with self._lock:
+                return self._query_adaptive(spec, deadline_s=deadline_s)
+        if deadline_s is not None:
+            raise ValueError(
+                "deadline_s clamps the adaptive escalation loop — it "
+                "requires a spec with epsilon set"
+            )
         with self._lock:
             return self._query_flat(spec)
 
@@ -377,6 +422,190 @@ class SimRankSession:
             return None, seeds
         return int(spec.key), None  # scalar seed: split into Q streams
 
+    # -- adaptive accuracy serving (core/accuracy.py) ------------------------
+
+    def _query_adaptive(
+        self, spec: QuerySpec, *, deadline_s: float | None = None
+    ) -> ResultEnvelope:
+        """One-shot adaptive spec: run the escalation loop now.
+
+        A batched ``nodes`` spec fans out to per-node items (a scalar
+        ``spec.key`` is split into per-query streams) and collapses to ONE
+        envelope whose certificate is the batch's weakest member
+        (``walks_used``/``certified_bound``/``rounds`` are the maxima).
+        """
+        if spec.nodes is None:
+            seed = spec.key if spec.key is not None else self._query_seed()
+            envs = self._serve_adaptive([(spec, int(seed))], deadline_s=deadline_s)
+            self.stats.queries += 1
+            return envs[0]
+        seed, seeds = self._multi_seeds(spec)
+        subs = [
+            dataclasses.replace(spec, node=int(u), nodes=None)
+            for u in spec.nodes
+        ]
+        envs = self._serve_adaptive(
+            list(zip(subs, query_seeds(seed, seeds, spec.q))),
+            deadline_s=deadline_s,
+        )
+        self.stats.queries += spec.q
+        worst = max(envs, key=lambda e: e.certified_bound)
+        walks = max(e.walks_used for e in envs)
+        is_ss = spec.kind == "single_source"
+        return ResultEnvelope(
+            kind=spec.kind,
+            nodes=spec.nodes,
+            scores=np.stack([e.scores for e in envs]) if is_ss else None,
+            topk_nodes=(
+                None if is_ss else np.stack([e.topk_nodes for e in envs])
+            ),
+            topk_scores=(
+                None if is_ss else np.stack([e.topk_scores for e in envs])
+            ),
+            walks_used=walks,
+            latency_s=envs[0].latency_s,
+            version=self.version,
+            error_bound=self.error_bound(walks),
+            variant=envs[0].variant,
+            epsilon=spec.epsilon,
+            certified_bound=worst.certified_bound,
+            certificate=worst.certificate,
+            rounds=max(e.rounds for e in envs),
+        )
+
+    def _serve_adaptive(
+        self,
+        batch: list[tuple],
+        budget_walks: int | None = None,
+        *,
+        deadline_s: float | None = None,
+    ) -> list[ResultEnvelope]:
+        """Escalate one (possibly repeat-padded) batch until epsilon is met.
+
+        Items are ``(spec, seed)`` or ``(spec, seed, ticket)`` tuples sharing
+        one batch group.  Each round is ONE fused single-source
+        ``serve_batch`` of the round's walks, query i drawing from
+        ``derive_seed(stream_i, r)`` in round r, and its ``[Q, n]`` rows fold
+        into the controller's carried accumulator; a query freezes at the
+        round its certificate fires, so its answer does not depend on how
+        long its batch mates escalate.  The cap is ``spec.budget_walks`` (or
+        the flat Thm-1 budget), which bounds total spend at the flat budget.
+
+        Hub queries (in-degree above ``hub_percentile``, ``spec.key`` not
+        pinned) ride node-keyed streams and their rows go through the probe
+        cache: a round whose rows are ALL resident skips its dispatch
+        (``stats.hub_hits``) — bitwise equal to serving it, since the cached
+        rows came from the same streams.
+
+        ``deadline_s`` is checked before every round after the first; on a
+        miss the still-live queries freeze with ``certificate='deadline'``
+        and their best-so-far scores.
+        """
+        spec0 = batch[0][0]
+        q = len(batch)
+        conf = (
+            spec0.confidence
+            if spec0.confidence is not None
+            else self.confidence
+        )
+        cap = spec0.budget_walks or budget_walks or self.params.n_r
+        ctrl = AccuracyController(
+            self.params,
+            n=self.backend.n,
+            q=q,
+            epsilon=spec0.epsilon,
+            confidence=conf,
+            plan=escalation_schedule(min(self.initial_budget, cap), cap),
+        )
+        us = [item[0].node for item in batch]
+        hubs = self.backend.hub_nodes(self.hub_percentile)
+        streams, cacheable = [], []
+        for item in batch:
+            sp = item[0]
+            if sp.key is None and sp.node in hubs:
+                streams.append(derive_seed(self.seed, 0x5B5B, sp.node))
+                cacheable.append(True)
+            else:
+                streams.append(int(item[1]))
+                cacheable.append(False)
+        ver = self.version
+        t0 = time.time()
+        while True:
+            n_round = ctrl.next_round()
+            if n_round is None:
+                ctrl.finish("budget")
+                break
+            r = ctrl.rounds_done
+            if (
+                deadline_s is not None
+                and r > 0
+                and time.time() - t0 >= deadline_s
+            ):
+                ctrl.finish("deadline")
+                break
+            # the row is bitwise-determined by (node stream, version, round,
+            # round size) plus the lane geometry (q, walk_chunk)
+            ckeys = [
+                (us[i], ver, r, n_round, q, self.walk_chunk)
+                if cacheable[i]
+                else None
+                for i in range(q)
+            ]
+            rows = [
+                None if ck is None else self._probe_cache.get(ck)
+                for ck in ckeys
+            ]
+            if rows and all(row is not None for row in rows):
+                est = np.stack(rows)
+                self.stats.hub_hits += 1  # a whole dispatch skipped
+            else:
+                est, _, _ = self.backend.serve_batch(
+                    "single_source", us, [derive_seed(s, r) for s in streams],
+                    k=0, n_r=n_round,
+                )
+                est = np.asarray(est)
+                self.stats.steps += 1
+                if r > 0:
+                    self.stats.escalations += 1
+                for i, ck in enumerate(ckeys):
+                    if ck is not None:
+                        self._probe_cache.put(ck, est[i])
+            ctrl.absorb(n_round, est)
+            if ctrl.all_frozen:
+                break
+        dt = time.time() - t0
+        label = self.backend.dispatch_label("telescoped")
+        out = []
+        for i, item in enumerate(batch):
+            sp = item[0]
+            scores, cert = ctrl.result(i)
+            env = ResultEnvelope(
+                kind=sp.kind,
+                node=sp.node,
+                walks_used=cert.walks,
+                latency_s=dt,
+                version=ver,
+                error_bound=self.error_bound(cert.walks),
+                variant=label,
+                epsilon=sp.epsilon,
+                certified_bound=cert.bound,
+                certificate=cert.name,
+                rounds=cert.rounds,
+            )
+            if sp.kind == "single_source":
+                env.scores = scores
+            else:
+                # host top-k over the combined vector, as the fused epilogue:
+                # query node masked out, ties toward the lower index
+                k = sp.k or self.top_k
+                masked = scores.copy()
+                masked[sp.node] = -np.inf
+                order = np.argsort(-masked, kind="stable")[:k]
+                env.topk_nodes = order.astype(np.int32)
+                env.topk_scores = masked[order]
+            out.append(env)
+        return out
+
     # -- queued serving (submit -> fused drain) ------------------------------
 
     def submit(self, spec: QuerySpec | int) -> QueryTicket:
@@ -390,8 +619,6 @@ class SimRankSession:
                 "queued serving uses the fused telescoped path; "
                 f"variant={spec.variant!r} is only available via query()"
             )
-        if spec.epsilon is not None:
-            _not_ported("adaptive accuracy (epsilon)", 9)
         with self._lock:
             if spec.key is not None:
                 seed, seq = int(spec.key), -1  # caller-pinned stream
@@ -403,8 +630,16 @@ class SimRankSession:
             return ticket
 
     def _batch_group(self, spec: QuerySpec):
-        """Specs that can share one fused dispatch (same shapes/budget)."""
-        return (spec.kind, spec.k, spec.budget_walks)
+        """Specs that can share one fused dispatch (same shapes/budget).
+
+        Adaptive specs also group on (epsilon, confidence): every query of
+        an escalation batch shares one controller, and flat specs never mix
+        with adaptive ones.
+        """
+        return (
+            spec.kind, spec.k, spec.budget_walks,
+            spec.epsilon, spec.confidence,
+        )
 
     def _pop_query_batch(self) -> tuple[list[tuple], int]:
         """Pop up to ``batch_q`` group-compatible specs; repeat-pad the rest."""
@@ -424,8 +659,11 @@ class SimRankSession:
     def _serve_fused(
         self, batch: list[tuple], budget_walks: int | None
     ) -> list[ResultEnvelope]:
-        """One fused dispatch for a (possibly repeat-padded) query batch."""
+        """One fused dispatch for a (possibly repeat-padded) query batch;
+        adaptive groups (``epsilon`` set) run the escalation loop instead."""
         spec0 = batch[0][0]
+        if spec0.epsilon is not None:
+            return self._serve_adaptive(batch, budget_walks)
         n_r = spec0.budget_walks or budget_walks or self.params.n_r
         us = [item[0].node for item in batch]
         seeds = [item[1] for item in batch]
@@ -646,6 +884,15 @@ class SimRankSession:
         if queries is not None:
             for q in queries:
                 self.submit(q)
+        if self.query_queue and self.query_queue[0][0].epsilon is not None:
+            # the escalation loop reads every round's scores on the host, so
+            # it cannot ride the fused update->query epoch; the specs stay
+            # queued
+            raise ValueError(
+                "adaptive (epsilon) specs cannot be served inside a fused "
+                "epoch — apply the update, then serve them via drain() or "
+                "query()"
+            )
         ops, batch = self._pop_updates()
         p = self.params
 

@@ -10,10 +10,13 @@ Variants (all estimate the same unbiased quantity):
                     chunk.
 * ``auto``        — per chunk, the tree when walks share prefixes enough
                     (dedup ratio >= 1.5), else the telescoped batch.
-* ``randomized``  — Alg. 4 Bernoulli probes: not ported yet.
+* ``randomized``  — Alg. 4 Bernoulli probes, O(n) per level; a chunk of
+                    walks steps together (``core.probe_random``).
 
 Each walk chunk and each query draws from its own generator, seeded from
-``seed`` by ``derive_seed``.
+``seed`` by ``derive_seed``; the randomized variant draws its walk pool
+from ``derive_seed(seed, 0)`` and walk k's Bernoulli probes from
+``derive_seed(seed, 10_000 + k)``, as the JAX package folds its key.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.core.probe import (
     probe_tree_levels,
     probe_walks_telescoped,
 )
+from repro_torch.core.probe_random import randomized_probe_walks
 from repro_torch.core.tree import build_prefix_tree, tree_stats
 from repro_torch.core.walks import derive_seed, make_generator, sample_walks
 from repro_torch.graph.structs import EllGraph, Graph
@@ -91,10 +95,17 @@ def single_source(
                 sqrt_c=sqrt_c, eps_p=params.eps_p, use_kernel=use_kernel,
             )
     elif variant == "randomized":
-        raise NotImplementedError(
-            "variant='randomized' needs core/probe_random.py, not ported yet "
-            "(ROADMAP queue 1 item 10)"
+        walks = sample_walks(
+            make_generator(derive_seed(seed, 0), dev), eg, u,
+            n_r=params.n_r, max_len=params.max_len, sqrt_c=sqrt_c,
         )
+        for a in range(0, params.n_r, walk_chunk):
+            b = min(a + walk_chunk, params.n_r)
+            gens = [make_generator(derive_seed(seed, 10_000 + k), dev)
+                    for k in range(a, b)]
+            total = total + randomized_probe_walks(
+                gens, eg, walks[a:b], sqrt_c=sqrt_c
+            ).sum(dim=0)
     else:
         raise ValueError(f"unknown variant {variant!r}")
 

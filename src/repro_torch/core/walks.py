@@ -29,12 +29,14 @@ from repro_torch.graph.structs import EllGraph
 Tensor = torch.Tensor
 
 
-def derive_seed(seed: int, index: int) -> int:
-    """The seed of stream ``index`` under ``seed`` (63-bit, collision-free in
-    practice): how sessions, batches and walk chunks split one seed."""
-    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(
-        1, np.uint64
-    )[0]
+def derive_seed(seed: int, *path: int) -> int:
+    """The seed of stream ``path`` under ``seed`` (63-bit, collision-free in
+    practice): how sessions, batches, walk chunks and escalation rounds split
+    one seed.  ``SeedSequence`` hashes each int as its 32-bit words, so
+    ``derive_seed(s, a, b)`` equals no ``derive_seed(s, i)`` with i < 2^32."""
+    state = np.random.SeedSequence(
+        [int(seed), *(int(i) for i in path)]
+    ).generate_state(1, np.uint64)[0]
     return int(state) & ((1 << 63) - 1)
 
 

@@ -34,7 +34,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.kernels.probe_push.ops",
                 "repro_torch.kernels.probe_push.ref",
                 "repro_torch.kernels.ell_plan", "repro_torch.graph.dynamic",
-                "repro_torch.core.epoch"):
+                "repro_torch.core.epoch", "repro_torch.core.metrics",
+                "repro_torch.core.accuracy", "repro_torch.core.power",
+                "repro_torch.core.montecarlo", "repro_torch.core.probe_random",
+                "repro_torch.core.tsf", "repro_torch.core.pooling"):
         assert new in mods, new
     script = (
         "import sys\n"

@@ -178,8 +178,9 @@ def test_single_source_variants_agree(small_powerlaw):
                                    err_msg=variant)
     idx, vals = topk(3, h.g, h.eg, u, 5, params, walk_chunk=64)
     assert u not in idx.tolist() and (np.diff(vals.numpy()) <= 0).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        single_source(3, h.g, h.eg, u, params, variant="randomized")
+    rnd = single_source(3, h.g, h.eg, u, params, variant="randomized",
+                        walk_chunk=64)
+    assert float(rnd[u]) == 1.0 and bool(torch.isfinite(rnd).all())
     with pytest.raises(ValueError, match="unknown variant"):
         single_source(3, h.g, h.eg, u, params, variant="nope")
 

@@ -165,9 +165,6 @@ def test_kernel_dtype_and_switches(powerlaw_handle):
 def test_not_ported_paths_raise(powerlaw_handle):
     s = TA.SimRankSession(powerlaw_handle)
     calls = [
-        lambda: s.query(TA.QuerySpec(node=1, epsilon=0.1)),
-        lambda: s.submit(TA.QuerySpec(node=1, epsilon=0.1)),
-        lambda: s.query(TA.QuerySpec(node=1, variant="randomized")),
         lambda: TA.SimRankSession(powerlaw_handle, backend="sharded"),
         lambda: powerlaw_handle.shard(),
     ]

@@ -33,6 +33,15 @@ Phases (any failure exits non-zero before the result line):
    drained twice, the second drain from the probe cache with no lane_probe
    launch; MC, TSF, the truncated Power Method and the randomized probe
    against the oracle, and one pooling evaluation of their top-50 lists;
+   then ``service_phase``: ``SimRankService`` (a copy of the HepPh handle)
+   behind ``start_server`` on loopback, driven by
+   ``benchmarks/bench_service.py``'s non-quick protocol (256 closed-loop
+   clients x 8 top-k queries, 512 walks, micro-batches of 16, admission
+   bound 192), with 0 unhandled errors, 16 pinned answers bitwise equal
+   to a direct session's solo replays, one ``POST /update`` seen by the
+   next answer's version and one adaptive request past its deadline
+   answered 200; then the launcher (``repro_torch.launch.serve.main``) at
+   its defaults, plain and with ``--epochs``;
 5. dynamic graphs on the HepPh stand-in.  The correctness stream
    (capacity 2m, k_max = max in-degree + 128): 16 fused epochs
    (``SimRankSession.epoch``) of 64 edge ops (32 deletes of live edges, 32
@@ -49,6 +58,12 @@ Phases (any failure exits non-zero before the result line):
    traffic (insert-only batches of 128 random edges, 4 top-k queries an
    epoch): the apply alone, update-only epochs (update->queryable), fused
    epochs and query-only epochs, its end state held against a rebuild;
+   then ``stream_phase``: ``StreamDriver`` at HepPh's node count on the
+   four scenarios of ``benchmarks/bench_stream.py``'s full config (steady,
+   turnover, bursty through ``ServiceTransport``, pooled checkpoints), the
+   rate scaled with n and the other changes listed at ``STREAM_N``; each
+   run applies every op, ends without sticky overflow and with mirrors
+   bitwise equal to a rebuild of its live window;
 6. the LM path at Llama-3.2-1B's full width (random bf16 weights from a
    seeded generator) through ``repro_torch.arch``: a 32,768-token prefill
    (``prefill_32k``, batch cut from 32 to 1) and 16 greedy decode steps over
@@ -1426,6 +1441,238 @@ def accuracy_phase(h) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4c: the network service at real size
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_service.py's non-quick protocol: 256 closed-loop clients
+# of 8 queries each over a pool of 64 query nodes, wire k 10, 512 walks a
+# query, micro-batches of 16 cut every 20 ms, admission bound 192 (below
+# the herd, so the 429 path runs)
+SVC_CLIENTS = 256
+SVC_PER_CLIENT = 8
+SVC_POOL = 64
+SVC_PINNED = 16  # answers held bitwise against solo replays
+# an adaptive request that reaches dispatch expired gets this in-band
+# deadline and four times it as the thread backstop: the backstop must
+# cover the worker thread's start and a round on the card, or the request
+# 504s (the default 1 ms floor gives a 4 ms backstop; with 50 ms, one such
+# request took 182 ms of its 200 ms backstop on an H100 80GB HBM3 at 700 W,
+# most of it in the HTTP round trip)
+SVC_MIN_ADAPTIVE_S = 0.25
+SVC_ADAPTIVE_CAP = 43_360  # make_params(n, eps_a=0.05).n_r at HepPh
+# the reference launcher's defaults
+LAUNCH_ARGS = ["--nodes", "20000", "--edges", "200000", "--queries", "10"]
+
+
+def counted(fn, launches: dict):
+    """Run ``fn`` with every kernel counter set to 0 just before and read
+    just after (added to ``launches``); returns what ``fn`` returns."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    try:
+        return fn()
+    finally:
+        for k, c in counters.items():
+            launches[k] += c.launches
+
+
+def service_herd(host: str, port: int, qnodes) -> tuple:
+    """The closed-loop herd: each client opens one keep-alive connection,
+    waits for all the others, then sends its queries one after another
+    (the client retries a 429 after the service's Retry-After hint).
+    Returns (replies by (client, j), latencies in s, 429s per query, client
+    errors, threads still alive, wall s)."""
+    import threading
+
+    from repro_torch.serving import ServiceClient
+
+    class Client(ServiceClient):
+        """bench_service's client, counting the 429s it retries."""
+
+        rejected = 0
+
+        def _request(self, method, path, body=None):
+            status, payload = super()._request(method, path, body)
+            self.rejected += status == 429
+            return status, payload
+
+    replies, lat, rejected, errors = {}, [], [], []
+    barrier = threading.Barrier(SVC_CLIENTS + 1)
+
+    def client(ci):
+        try:
+            with Client(host, port, timeout_s=300.0) as cl:
+                barrier.wait(timeout=300)
+                for j in range(SVC_PER_CLIENT):
+                    u = int(qnodes[(ci * SVC_PER_CLIENT + j) % len(qnodes)])
+                    t, r0 = time.perf_counter(), cl.rejected
+                    r = cl.query(node=u, kind="topk", k=10,
+                                 seed=ci * 10_000 + j)
+                    lat.append(time.perf_counter() - t)
+                    rejected.append(cl.rejected - r0)
+                    replies[ci, j] = (u, r)
+        except Exception as e:  # every client failure fails the gate
+            errors.append(f"client {ci}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+               for ci in range(SVC_CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=300)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    alive = sum(t.is_alive() for t in threads)
+    return replies, lat, rejected, errors, alive, wall
+
+
+def service_phase(h) -> dict:
+    """``SimRankService`` behind ``start_server`` on loopback, on the HepPh
+    stand-in (the service copies the handle: one more table on the card),
+    driven by the herd of benchmarks/bench_service.py; then the pinned
+    answers against a direct session's solo replays, one ``POST /update``,
+    one adaptive request past its deadline, and the launcher twice.
+    Returns each kernel's launches in the driven windows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec, SimRankSession
+    from repro_torch.launch import serve
+    from repro_torch.serving import (
+        ServiceClient,
+        ServiceConfig,
+        SimRankService,
+        start_server,
+        stop_server,
+    )
+
+    launches = dict.fromkeys(kernel_counters(), 0)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    deg = h.eg.in_deg.cpu().numpy()
+    # bench_service's pick_query_nodes: uniform over in-degree >= 1
+    qnodes = np.random.default_rng(0).choice(np.flatnonzero(deg > 0), SVC_POOL,
+                                             replace=False)
+    cfg = ServiceConfig(batch_window_ms=20.0, max_batch_q=16, max_inflight=192,
+                        default_budget_walks=512,
+                        min_adaptive_deadline_s=SVC_MIN_ADAPTIVE_S)
+    svc = SimRankService(h, config=cfg, seed=0,
+                         session_kwargs=dict(c=0.6, eps_a=0.1, walk_chunk=256,
+                                             top_k=50))
+    server, thread = start_server(svc)
+    host, port = server.server_address
+    try:
+        with ServiceClient(host, port) as cl:  # warm-up, outside the window
+            cl.query(node=int(qnodes[0]), kind="topk", k=10)
+        torch.cuda.synchronize()
+        replies, lat, rejected, errors, alive, wall = counted(
+            lambda: service_herd(host, port, qnodes), launches)
+        herd_lp = launches["lane_probe"]
+        require(herd_lp > 0, f"the herd launched no lane_probe: {launches}")
+        snap = svc.stats_snapshot()
+        stats = snap["service"]
+        unhandled = len(errors) + alive + stats["errors_5xx"]
+        require(unhandled == 0,
+                f"{unhandled} unhandled errors ({stats['rejected_429']} 429s, "
+                f"{wall:.1f} s): {errors[:5]}")
+        total = SVC_CLIENTS * SVC_PER_CLIENT
+        require(len(replies) == total == len(lat)
+                and all(len(r["topk_nodes"]) == 10 for _, r in replies.values())
+                and all(r["version"] == 0 for _, r in replies.values()),
+                "herd replies: count, width or version")
+        require(stats["served"] == total + 1 and stats["shed_504"] == 0,
+                f"service counters {stats}")
+        # 16 pinned answers against solo replays on the caller's handle
+        ref = SimRankSession(h, walk_chunk=256, batch_q=cfg.max_batch_q,
+                             top_k=50, own_graph=False)
+        picks = [(ci, ci % SVC_PER_CLIENT)
+                 for ci in range(0, SVC_CLIENTS, SVC_CLIENTS // SVC_PINNED)]
+        for ci, j in picks:
+            u, r = replies[ci, j]
+            tk = ref.submit(QuerySpec(kind="topk", node=u, k=10,
+                                      budget_walks=512, key=ci * 10_000 + j))
+            ref.drain()
+            env = tk.envelope
+            require(r["topk_nodes"] == env.topk_nodes.tolist()
+                    and np.array_equal(np.asarray(r["topk_scores"], np.float32),
+                                       env.topk_scores)
+                    and r["walks_used"] == env.walks_used == 512,
+                    f"client {ci} query {j} (node {u}, batch {r['batch_size']})"
+                    f" differs from its solo replay")
+        del ref
+
+        def after_herd():
+            with ServiceClient(host, port) as cl:
+                v0 = cl.healthz()["version"]
+                t = time.perf_counter()
+                rep = cl.update(inserts=[(int(qnodes[1]), int(qnodes[2])),
+                                         (int(qnodes[3]), int(qnodes[2]))])
+                upd_s = time.perf_counter() - t
+                r = cl.query(node=int(qnodes[2]), kind="topk", k=10, seed=5)
+                t = time.perf_counter()
+                # capped at the flat budget of eps 0.05, so only a
+                # certificate or the deadline stops it, never the cap
+                status, ad = cl.query_raw(node=int(qnodes[4]), kind="topk",
+                                          k=10, epsilon=0.05, deadline_s=0.005,
+                                          budget_walks=SVC_ADAPTIVE_CAP)
+                ad_s = time.perf_counter() - t
+            return v0, rep, upd_s, r, status, ad, ad_s
+
+        v0, rep, upd_s, r, status, ad, ad_s = counted(after_herd, launches)
+        require(rep["version"] == v0 + 1 and rep["applied"] == 2
+                and r["version"] == rep["version"],
+                f"update {rep} then answer version {r['version']}")
+        require(status == 200 and ad.get("certificate") in (
+            "deadline", "analytic", "empirical"),
+            f"adaptive request past its deadline: {status} {ad}")
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        stop_server(server, thread)
+    require(not thread.is_alive() and not svc._collector.is_alive(),
+            "server or collector thread still alive")
+    lat_ms = np.asarray(lat) * 1e3
+    log(f"service (bench_service protocol on hepph: {SVC_CLIENTS} clients x "
+        f"{SVC_PER_CLIENT} queries, k 10, 512 walks, window 20 ms, batch 16, "
+        f"max_inflight 192): {total} answers in {wall:.2f} s, "
+        f"{total / wall:.1f} queries/s; latency p50 "
+        f"{np.percentile(lat_ms, 50):.1f} ms, p99 {np.percentile(lat_ms, 99):.1f}"
+        f" ms (with 429 backoff); 429s {stats['rejected_429']} (most for one "
+        f"query {max(rejected)}, the client's limit 64), 504s "
+        f"{stats['shed_504']}, 5xx {stats['errors_5xx']}; {stats['batches']} "
+        f"batches, sizes {stats['batch_hist']}; tenant steps "
+        f"{snap['tenants']['default']['steps']}; lane_probe launches in the "
+        f"herd {herd_lp}")
+    log(f"  {len(picks)} pinned answers equal their solo replays bitwise; "
+        f"POST /update (2 inserts past the full COO buffer: regrows "
+        f"{rep['regrows']}) {upd_s * 1e3:.1f} ms, version {v0} -> "
+        f"{rep['version']}, next answer at version {r['version']}; adaptive "
+        f"eps 0.05 past its 5 ms deadline: {status}, certificate "
+        f"{ad['certificate']}, {ad['walks_used']} walks in {ad['rounds']} "
+        f"rounds, {ad_s * 1e3:.1f} ms; peak device memory "
+        f"{peak / 1e9:.3f} GB above the caller's graph; card: {card()}")
+    del svc, server
+    torch.cuda.empty_cache()
+    for extra in ([], ["--epochs"]):
+        t = time.perf_counter()
+        served = counted(lambda: serve.main(LAUNCH_ARGS + extra), launches)
+        torch.cuda.synchronize()
+        require(len(served) == 10 and all(
+            e.version == i + 1 and np.isfinite(e.topk_scores).all()
+            and e.topk_nodes.shape == (50,) for i, e in enumerate(served)),
+            f"launcher {extra}: versions or scores")
+        log(f"launcher {' '.join(LAUNCH_ARGS + extra)}: "
+            f"{time.perf_counter() - t:.2f} s with the graph build")
+    torch.cuda.empty_cache()
+    log(f"service phase: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: dynamic graphs at real size
 # ---------------------------------------------------------------------------
 
@@ -1924,6 +2171,197 @@ def dynamic_traffic(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: temporal streams at HepPh's node count
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_stream.py's full config (run(quick=False)) with n lifted
+# from 2,000 to HepPh's 34,546, and these changes, each for its reason:
+# - rate 20,000 -> 345,460 edges/s, scaled with n: the bench's 5 live edges
+#   a node under its 0.5 s TTL, so the steady window holds about 172,730
+#   edges (computed), the HepPh stand-in's order (149,381);
+# - horizon 3 s -> 1 s: the scaled rate makes 17x the bench's ops a second;
+#   1 s is two TTLs, so the steady run still spends half its time at the
+#   full window;
+# - capacity 65,536 -> 524,288 (2^19): twice the largest window of any run
+#   (the bursty run's, at most about 242,000 edges: 0.3 s of on-rate plus a
+#   tick, computed), not 65,536 x 17.3 = 1.13 M, because every delete is
+#   matched against the whole COO buffer;
+# - update_batch 64 -> 512, the bench's burst: one burst is one epoch.  The
+#   apply is bound by its launches, not its ops (this script's dynamic
+#   phase: an insert-only apply of 64 ops 0.95 ms, of 128 ops 1.23 ms on an
+#   H100 80GB HBM3 at 700 W), so 64-op epochs would make 8x the epochs at
+#   nearly the cost of each;
+# - no warm-up run: nothing compiles on first use (the kernels are built
+#   before the first phase);
+# - no sharded leg (ROADMAP queue 1 item 12).
+STREAM_N = 34_546
+STREAM_RATE = 20_000 * STREAM_N // 2_000
+STREAM_HORIZON = 1.0
+STREAM_HANDLE = dict(capacity=1 << 19, k_max=256)
+STREAM_DRIVER = dict(tick_s=0.05, update_burst=512, k=10, budget_walks=512)
+STREAM_UPDATE_BATCH = 512
+STREAM_SLO_P99_S = 0.5  # the bench's full-config SLO (printed, not gated)
+
+
+def changing_batches(backend) -> list:
+    """Count, on ``backend``, the update batches that changed the graph
+    (any op applied), whichever path applies them: the expected version."""
+    count = [0]
+    for name in ("apply_ops", "epoch_batch"):
+        real = getattr(type(backend), name)
+        ref = weakref.ref(backend)
+
+        def wrapped(*a, _real=real, _name=name, **kw):
+            out = _real(ref(), *a, **kw)
+            applied = out if _name == "apply_ops" else out[0]
+            count[0] += bool(applied.any())
+            return out
+
+        setattr(backend, name, wrapped)
+    return count
+
+
+def live_window(stream, ttl: float, now: float):
+    """The live edges (arrival order) of ``stream`` at virtual time ``now``
+    under ``ttl``: an expirer replayed independently of the driver's."""
+    from repro_torch.streams import SlidingWindowExpirer
+
+    ex = SlidingWindowExpirer(ttl)
+    j = int(stream.t.searchsorted(now, side="right"))
+    ex.ingest(stream.t[:j], stream.src[:j], stream.dst[:j])
+    ex.expire_until(now)
+    return ex.live_edges()
+
+
+def stream_checks(what, rep, h, batches, stream, ttl, tick_s, final, dev):
+    """The gates of one run: every op applied, no sticky overflow, and the
+    mirrors bitwise equal to a rebuild of the live window."""
+    require(rep.updates_applied == rep.arrivals + rep.expired,
+            f"{what}: applied {rep.updates_applied} != arrivals "
+            f"{rep.arrivals} + expired {rep.expired}")
+    require(not rep.sticky_overflow, f"{what}: sticky overflow")
+    n_ticks = rep.ticks
+    now = n_ticks * tick_s + (ttl if final else 0.0)
+    src, dst = live_window(stream, ttl, now)
+    require(len(src) == rep.final_live_edges == h.num_edges,
+            f"{what}: live {len(src)}, report {rep.final_live_edges}, "
+            f"handle {h.num_edges}")
+    host = HostEdges(src, dst, h.n, h.capacity, h.k_max)
+    host.batches = batches[0]
+    mirrors_equal_rebuild(h, host, dev)
+
+
+def stream_log(what, rep, sess_stats=None) -> None:
+    log(f"  {what}: {rep.ticks} ticks, {rep.arrivals} arrivals, "
+        f"{rep.expired} expired, {rep.updates_applied} applied in "
+        f"{rep.update_steps} update steps, {rep.queries} queries in "
+        f"{rep.duration_s:.2f} s ({rep.qps:.1f} queries/s); staleness p50 "
+        f"{rep.staleness_p50_s * 1e3:.1f} ms, p99 {rep.staleness_p99_s * 1e3:.1f}"
+        f" ms (SLO {STREAM_SLO_P99_S * 1e3:.0f} ms met: {rep.slo_met}); version"
+        f" lag p50 {rep.version_lag_p50:.0f}, p99 {rep.version_lag_p99:.0f} "
+        f"ops; 429s {rep.rejected_429}; live at the end {rep.final_live_edges}"
+        + ("" if sess_stats is None else
+           f"; epochs {sess_stats.epochs}, regrows {sess_stats.regrows}"))
+
+
+def stream_phase(dev) -> dict:
+    """``StreamDriver`` on the card at HepPh's node count, the four scenarios
+    of benchmarks/bench_stream.py: steady (TTL 0.5 s) and turnover (TTL of
+    two ticks, retired with ``final_expire``) through
+    ``SessionTransport(mode="epoch")``, bursty (on/off at twice the rate,
+    TTL 0.3 s) through ``ServiceTransport``, and pooled (TTL 0.5 s,
+    ``mode="drain"``, three checkpoints); each run's mirrors held against a
+    rebuild of its live window.  Returns each kernel's launches in the
+    runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GraphHandle, SimRankSession
+    from repro_torch.serving import ServiceConfig, SimRankService
+    from repro_torch.streams import (
+        FreshnessSLO,
+        ServiceTransport,
+        SessionTransport,
+        StreamDriver,
+        bursty_edge_stream,
+        poisson_edge_stream,
+    )
+
+    launches = dict.fromkeys(kernel_counters(), 0)
+    t_phase = time.perf_counter()
+    n, rate, horizon = STREAM_N, STREAM_RATE, STREAM_HORIZON
+    tick_s, budget = STREAM_DRIVER["tick_s"], STREAM_DRIVER["budget_walks"]
+    slo = FreshnessSLO(staleness_p99_s=STREAM_SLO_P99_S)
+    e = np.empty(0, np.int32)
+
+    def empty():
+        return GraphHandle.from_edges(e, e, n, device=dev, **STREAM_HANDLE)
+
+    def session():
+        return SimRankSession(empty(), c=0.6, top_k=10, batch_q=4, seed=0,
+                              update_batch=STREAM_UPDATE_BATCH)
+
+    stream = poisson_edge_stream(n, rate=rate, horizon=horizon, seed=0)
+    log(f"stream phase (bench_stream full config, n {n}, rate {rate} edges/s, "
+        f"horizon {horizon} s, {STREAM_HANDLE}, update_batch "
+        f"{STREAM_UPDATE_BATCH}): {len(stream)} arrivals; {STREAM_DRIVER}")
+    n_ticks = int(np.ceil(horizon / tick_s))
+    runs = (  # name, mode, ttl, final_expire, driver extras
+        ("steady", "epoch", 0.5, False, dict(queries_per_tick=2)),
+        ("turnover", "epoch", 2 * tick_s, True, dict(queries_per_tick=2)),
+        ("pooled", "drain", 0.5, False, dict(
+            queries_per_tick=1, checkpoint_every=max(1, n_ticks // 3),
+            checkpoint_queries=4, expert_r=20_000, fresh_budget=8_192,
+            budget_walks=max(budget, 1_024))),
+    )
+    for what, mode, ttl, final, extra in runs:
+        sess = session()
+        batches = changing_batches(sess.backend)
+        drv = StreamDriver(SessionTransport(sess, mode=mode), stream, ttl=ttl,
+                           slo=slo, seed=0, **dict(STREAM_DRIVER, **extra))
+        rep = counted(lambda: drv.run(final_expire=final), launches)
+        torch.cuda.synchronize()
+        stream_checks(what, rep, sess.handle, batches, stream, ttl, tick_s,
+                      final, dev)
+        stream_log(f"{what} (TTL {ttl} s, {mode})", rep, sess.stats)
+        for cp in rep.checkpoints:
+            log(f"    checkpoint t={cp.t:.2f} s: {cp.live_edges} live edges, "
+                f"{cp.queries} queries, pool {cp.pool_size:.1f}, precision@10 "
+                f"{cp.precision_at_k:.4f}, NDCG@10 {cp.ndcg_at_k:.4f}")
+        del sess, drv
+    bstream = bursty_edge_stream(n, rate_on=2 * rate, mean_on=0.15,
+                                 mean_off=0.3, horizon=horizon, seed=1)
+    with SimRankService(
+        empty(),
+        config=ServiceConfig(batch_window_ms=2.0, max_batch_q=4,
+                             default_budget_walks=budget),
+        session_kwargs=dict(c=0.6, top_k=10,
+                            update_batch=STREAM_UPDATE_BATCH),
+    ) as svc:
+        sess = svc.session("stream")
+        # updates apply through the default tenant's session, on the
+        # handle every tenant shares
+        batches = changing_batches(svc.session().backend)
+        drv = StreamDriver(ServiceTransport(svc, tenant="stream"), bstream,
+                           ttl=0.3, queries_per_tick=2, slo=slo, seed=0,
+                           **STREAM_DRIVER)
+        rep = counted(drv.run, launches)
+        torch.cuda.synchronize()
+        require(svc.stats.errors_5xx == 0 and svc.stats.served >= rep.queries,
+                f"bursty service counters {svc.stats}")
+        stream_checks("bursty", rep, sess.handle, batches, bstream, 0.3,
+                      tick_s, False, dev)
+        stream_log(f"bursty via the service (TTL 0.3 s, {len(bstream)} "
+                   f"arrivals, on at {2 * rate} edges/s)", rep, sess.stats)
+    torch.cuda.empty_cache()
+    require(launches["lane_probe"] > 0,
+            f"the stream runs launched no lane_probe: {launches}")
+    log(f"stream phase: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{launches}; card: {card()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the LM path at full width
 # ---------------------------------------------------------------------------
 
@@ -2143,18 +2581,21 @@ def main() -> int:
     profile_batch(h, nodes)
     toy_accuracy(dev)
     acc_launches = accuracy_phase(h)
+    svc_launches = service_phase(h)
     del h
     torch.cuda.empty_cache()
     dyn_launches = dynamic_phase(dev)
     for k, v in dynamic_traffic(dev).items():
         dyn_launches[k] += v
+    stream_launches = stream_phase(dev)
     lm_launches = lm_phase(dev)
 
     # each kernel's launches in the windows of the paths that run it; probe_push
     # is on no path (the reference calls it only from its tests)
     for name, row in rows.items():
         row["launches"] = (launches[name] + acc_launches[name]
-                           + dyn_launches[name] + lm_launches[name])
+                           + svc_launches[name] + dyn_launches[name]
+                           + stream_launches[name] + lm_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

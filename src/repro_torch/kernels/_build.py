@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -33,6 +34,7 @@ FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()  # one build and one load per library
 
 
 def nvcc() -> str:
@@ -93,13 +95,17 @@ def build_all(names=KERNELS) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _libs[name] = lib
-    return lib
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+
+    Safe to call from several threads: the first caller builds and loads,
+    the others wait for it."""
+    with _libs_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib
 
 
 def bind(lib: ctypes.CDLL, symbol: str, n_ptrs: int, n_ints: int,

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 
 import torch
 
@@ -148,6 +149,9 @@ build_plan.builds = 0
 
 
 _plans: collections.OrderedDict = collections.OrderedDict()
+# kernels launch from the service's collector and straggler worker threads
+# too: one lock makes each lookup, build and eviction whole
+_plans_lock = threading.Lock()
 
 
 def plan_of(row_len: Tensor, k_max: int) -> EllPlan:
@@ -156,22 +160,26 @@ def plan_of(row_len: Tensor, k_max: int) -> EllPlan:
     Keyed on the tensor's memory (device, address, shape, stride) with the
     table width; a plan holds its ``row_len``, so that memory cannot be
     reused while the plan is kept, and it is rebuilt when ``row_len`` was
-    written in place since (``_version``).
+    written in place since (``_version``).  Safe to call from several
+    threads: a plan is built once per change of ``row_len``.
     """
     key = (row_len.device, row_len.data_ptr(), tuple(row_len.shape),
            row_len.stride(), int(k_max), CHUNK_SLOTS)
-    plan = _plans.get(key)
-    if plan is None or plan.version != row_len._version:
-        plan = _plans[key] = build_plan(row_len, k_max, chunk_slots=CHUNK_SLOTS)
-    _plans.move_to_end(key)
-    while len(_plans) > CACHED_PLANS:
-        _plans.popitem(last=False)
-    return plan
+    with _plans_lock:
+        plan = _plans.get(key)
+        if plan is None or plan.version != row_len._version:
+            plan = _plans[key] = build_plan(row_len, k_max,
+                                            chunk_slots=CHUNK_SLOTS)
+        _plans.move_to_end(key)
+        while len(_plans) > CACHED_PLANS:
+            _plans.popitem(last=False)
+        return plan
 
 
 def clear_plans() -> None:
     """Forget every kept plan (the next launch of each row range builds)."""
-    _plans.clear()
+    with _plans_lock:
+        _plans.clear()
 
 
 def launch_layout(width: int, itemsize: int, *ptrs: int) -> tuple[int, int, int]:

@@ -37,7 +37,14 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.core.epoch", "repro_torch.core.metrics",
                 "repro_torch.core.accuracy", "repro_torch.core.power",
                 "repro_torch.core.montecarlo", "repro_torch.core.probe_random",
-                "repro_torch.core.tsf", "repro_torch.core.pooling"):
+                "repro_torch.core.tsf", "repro_torch.core.pooling",
+                "repro_torch.serving", "repro_torch.serving.protocol",
+                "repro_torch.serving.straggler", "repro_torch.serving.service",
+                "repro_torch.serving.server", "repro_torch.serving.engine",
+                "repro_torch.serving.dynamic_engine", "repro_torch.streams",
+                "repro_torch.streams.events", "repro_torch.streams.churn",
+                "repro_torch.streams.driver", "repro_torch.launch.serve",
+                "repro_torch.examples.quickstart"):
         assert new in mods, new
     script = (
         "import sys\n"
@@ -85,12 +92,21 @@ def test_entry_points_default_to_cuda():
     from repro_torch.graph import ell_from_edges, graph_from_edges, toy_graph
     from repro_torch.graph.convert import graph_from_arrays
 
+    from repro_torch.serving import SimRankService
+    from repro_torch.streams import SlidingWindowExpirer, frozen_window_handle
+
     src, dst, n = toy_graph()
+    expirer = SlidingWindowExpirer(ttl=0.5)
+    expirer.ingest([0.1], [0], [1])
     for call in (
         lambda: GraphHandle.from_edges(src, dst, n),
         lambda: graph_from_edges(src, dst, n),
         lambda: ell_from_edges(src, dst, n),
         lambda: graph_from_arrays(src=src, dst=dst, n=n),
+        # the service serves where its handle lives: the card by default
+        lambda: SimRankService(GraphHandle.from_edges(src, dst, n)),
+        lambda: frozen_window_handle(src, dst, n),
+        lambda: expirer.expire_batches(1.0, batch_size=4, n=n),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -163,10 +163,16 @@ def test_kernel_dtype_and_switches(powerlaw_handle):
 
 
 def test_not_ported_paths_raise(powerlaw_handle):
+    from repro_torch.launch import serve
+    from repro_torch.serving import SimRankService
+
     s = TA.SimRankSession(powerlaw_handle)
     calls = [
         lambda: TA.SimRankSession(powerlaw_handle, backend="sharded"),
         lambda: powerlaw_handle.shard(),
+        lambda: SimRankService(powerlaw_handle, backend="sharded"),
+        lambda: serve.main(["--device", "cpu", "--backend", "sharded",
+                            "--nodes", "50", "--edges", "200"]),
     ]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -41,7 +41,19 @@ Phases (any failure exits non-zero before the result line):
    to a direct session's solo replays, one ``POST /update`` seen by the
    next answer's version and one adaptive request past its deadline
    answered 200; then the launcher (``repro_torch.launch.serve.main``) at
-   its defaults, plain and with ``--epochs``;
+   its defaults, plain and with ``--epochs``; then ``shard_phase``: the
+   sharded backend on the same graph, S row blocks all on ``cuda:0``
+   (``ShardMesh(["cuda:0"] * S)``), every level through lane_probe: the 16
+   top-k queries drained in batches of 8 at 1 and 4 spmd blocks (bitwise
+   equal to the local kernel serve) and 4 ring blocks (1e-5), a warm drain
+   building no chunk plan; at 4 spmd blocks also the kernel off (1e-5), the
+   bf16 exchange (1e-3), one profiled batch, lane_probe at the per-shard
+   shape against its plain version, an adaptive spec (bitwise against the
+   local one) and ``update()``; ``SimRankService(backend="sharded")`` over
+   HTTP and the launcher with ``--backend sharded``; then 16 mixed epochs
+   at 4 blocks (phase 5's ops) whose applied masks equal a host replay and
+   whose blocks equal ``build_shard_epoch_graph`` over the host state, and
+   one overflow of the hub row regrown;
 5. dynamic graphs on the HepPh stand-in.  The correctness stream
    (capacity 2m, k_max = max in-degree + 128): 16 fused epochs
    (``SimRankSession.epoch``) of 64 edge ops (32 deletes of live edges, 32
@@ -2194,6 +2206,399 @@ def dynamic_traffic(dev) -> dict:
 # - no warm-up run: nothing compiles on first use (the kernels are built
 #   before the first phase);
 # - no sharded leg (ROADMAP queue 1 item 12).
+# ---------------------------------------------------------------------------
+# The sharded backend: S row blocks of the HepPh stand-in on one card
+# ---------------------------------------------------------------------------
+
+SHARD_DEV = "cuda:0"  # the card's one device holds every block
+SHARD_S = 4
+SHARD_W = 256  # the sessions' walk_chunk: lane columns of a drained batch
+
+
+class _TopK:
+    """An answer's top-k pair, for ``topk_agree``."""
+
+    def __init__(self, nodes, scores):
+        self.topk_nodes, self.topk_scores = nodes, scores
+
+
+def shard_state_equals_rebuild(be) -> None:
+    """Every block of the backend's carried device state bitwise equal to
+    ``build_shard_epoch_graph`` over its host state's ``to_host_edges()``,
+    every ``in_deg`` replica included."""
+    import torch
+
+    from repro_torch.core.epoch import build_shard_epoch_graph
+
+    st = be._epoch_graph
+    rb = build_shard_epoch_graph(*be.state.to_host_edges(), be.n,
+                                 capacity_per_shard=st.capacity,
+                                 k_max=st.k_max, mesh=be.mesh)
+    for f in ("src_sh", "dst_sh", "counts", "in_nbrs", "in_deg"):
+        for s, (a, b) in enumerate(zip(getattr(st, f), getattr(rb, f))):
+            require(torch.equal(a, b), f"shard {s}: {f} differs from the rebuild")
+    del rb
+    torch.cuda.empty_cache()
+
+
+def shard_kernel_shapes(st, params, gen, full_ms: float) -> None:
+    """lane_probe at the spmd path's per-shard shape (R = rows, T = n_pad,
+    W = 256) on each block of ``st``, against its plain version, with its
+    live-slot bound, beside the full-table time."""
+    import torch
+
+    from repro_torch.core.epoch import kernel_weights
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
+
+    n, rows = st.n, st.rows
+    w_push = kernel_weights(st, params.sqrt_c)
+    total_ms = 0.0
+    for s in range(st.shards):
+        row0 = s * rows
+        a = lane_inputs(gen, st.in_nbrs[s], st.n_pad, SHARD_W,
+                        dtype=torch.float32, n_live=n, row0=row0)
+        a["weights"] = w_push[s]
+        kw = dict(row_len=st.in_deg[s][row0 : row0 + rows], row0=row0,
+                  tab0=row0, n_live=n, prune=True)
+        ms = time_ms(lambda: lane_probe_level(**a, **kw), 20)
+        out, tot = lane_probe_level(**a, **kw)
+        p_ms, (ref_out, ref_tot) = plain_ms(
+            lambda: lane_probe_level_ref(**a, **kw))
+        err = max(fp32_err(out, ref_out), fp32_err(tot, ref_tot))
+        b_ms, by, nbytes = lane_bound(a["nbrs"], kw["row_len"], n, SHARD_W,
+                                      a["fin"])
+        total_ms += ms
+        log(f"lane_probe shard {s} of {st.shards} [R={rows} x K={st.k_max}, "
+            f"T={st.n_pad}, W={SHARD_W}, row0=tab0={row0}]: {ms:.4f} ms, plain "
+            f"{p_ms:.1f} ms, max_abs_err {err:.3e}, live-slot bound "
+            f"{b_ms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+    log(f"lane_probe at the spmd shape: {st.shards} launches a level "
+        f"{total_ms:.4f} ms together, full table (one launch, R = n) "
+        f"{full_ms:.4f} ms")
+
+
+def shard_service(h, launches: dict) -> None:
+    """``SimRankService(backend="sharded")`` over 4 blocks behind the HTTP
+    server (pinned queries, one update), then the launcher with ``--backend
+    sharded``: one block per card, and 4 blocks on ``cuda:0`` with
+    ``--epochs``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.serving import (
+        ServiceClient,
+        ServiceConfig,
+        SimRankService,
+        start_server,
+        stop_server,
+    )
+
+    t = time.perf_counter()
+    svc = SimRankService(h, backend="sharded",
+                         mesh=ShardMesh([SHARD_DEV] * SHARD_S),
+                         config=ServiceConfig(batch_window_ms=20.0,
+                                              max_batch_q=8,
+                                              default_budget_walks=512))
+    server, thread = start_server(svc)
+    host, port = server.server_address
+    try:
+        with ServiceClient(host, port) as cl:
+            r = counted(lambda: cl.query(node=int(h.n // 3), kind="topk", k=10,
+                                         seed=5), launches)
+            rep = cl.update(inserts=[(1, int(h.n // 3))])
+            r2 = counted(lambda: cl.query(node=int(h.n // 3), kind="topk",
+                                          k=10, seed=5), launches)
+            hz = cl.healthz()
+    finally:
+        stop_server(server, thread)
+    require(not thread.is_alive() and svc.stats.errors_5xx == 0,
+            "sharded service: thread alive or 5xx")
+    require(hz["backend"] == "sharded" and rep["version"] == hz["version"] == 1
+            and r["version"] == 0 and r2["version"] == 1
+            and len(r["topk_nodes"]) == 10
+            and np.isfinite(r2["topk_scores"]).all(),
+            f"sharded service answers: {hz}, {rep}")
+    log(f"sharded service ({SHARD_S} blocks): 2 queries and 1 update over "
+        f"HTTP in {time.perf_counter() - t:.2f} s with the device state's "
+        f"build, version 0 -> 1")
+    del svc, server
+    torch.cuda.empty_cache()
+    for extra in (["--backend", "sharded"],
+                  ["--backend", "sharded", "--shards", str(SHARD_S), "--device",
+                   SHARD_DEV, "--epochs"]):
+        t = time.perf_counter()
+        served = counted(lambda: serve.main(LAUNCH_ARGS + extra), launches)
+        torch.cuda.synchronize()
+        require(len(served) == 10 and all(
+            e.version == i + 1 and e.variant == "sharded[spmd]"
+            and np.isfinite(e.topk_scores).all() for i, e in enumerate(served)),
+            f"launcher {extra}: versions, variants or scores")
+        log(f"launcher {' '.join(LAUNCH_ARGS + extra)}: "
+            f"{time.perf_counter() - t:.2f} s with the graph build")
+    torch.cuda.empty_cache()
+
+
+def shard_phase(h, params, nodes, full_lane_ms: float) -> dict:
+    """The sharded backend on the HepPh stand-in, every block on the card:
+    16 top-k queries drained in batches of 8 through ``SimRankSession(
+    backend="sharded")`` at 1 and 4 spmd blocks (bitwise equal to the local
+    kernel serve) and 4 ring blocks (1e-5); at 4 spmd blocks also with the
+    kernel off (1e-5) and the bf16 exchange (1e-3), one profiled batch and
+    lane_probe at the per-shard shape, an adaptive spec (bitwise against
+    the local one) and a host-path update; the service and the launcher on
+    the sharded backend; then 16 mixed epochs at 4 blocks (phase 5's ops)
+    against a host replay and rebuilds, and one forced overflow regrown.
+    Returns each kernel's launches in the counted windows (the warm drains,
+    the service's and launcher's queries, the epochs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import QuerySpec, SimRankSession
+    from repro_torch.api.backend import ShardedBackend, ShardedGraphState
+    from repro_torch.core.walks import derive_seed
+    from repro_torch.kernels.ell_plan import build_plan
+    from repro_torch.launch.mesh import ShardMesh
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernel_counters(), 0)
+    counters = kernel_counters()
+    lane = counters["lane_probe"]
+    n = h.n
+    # the main path's seeds: query i of a session seeded 0 draws from
+    # derive_seed(0, i), so every drain below answers the same 16 queries
+    specs = [QuerySpec(kind="topk", node=int(u), k=50, key=derive_seed(0, i))
+             for i, u in enumerate(nodes)]
+
+    def drain(sess, *, count=False):
+        for sp in specs:
+            sess.submit(sp)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        build_plan.builds = 0
+        t = time.perf_counter()
+        envs = sess.drain()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        if count:
+            for k, fn in counters.items():
+                launches[k] += fn.launches
+        return envs, secs, lane.launches, build_plan.builds
+
+    loc = SimRankSession(h, walk_chunk=SHARD_W, batch_q=8, seed=0,
+                         own_graph=False)
+    local, local_s, local_levels, _ = drain(loc)
+    del loc
+    log(f"shard phase: local kernel drain of {len(specs)} top-k queries "
+        f"{local_s:.3f} s ({local_s / 2 * 1e3:.1f} ms per drained batch), "
+        f"{local_levels} levels")
+    ring_s = None
+    for probe, s in (("spmd", 1), ("spmd", SHARD_S), ("ring", SHARD_S)):
+        mesh = ShardMesh([SHARD_DEV] * s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = SimRankSession(h, walk_chunk=SHARD_W, batch_q=8, seed=0,
+                              backend="sharded", mesh=mesh,
+                              backend_options=dict(probe=probe))
+        be = sess.backend
+        st = be._epoch_graph_state()
+        if probe == "ring":
+            be.state.ring_graph(mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        first, first_s, _, first_builds = drain(sess)
+        envs, secs, lp, builds = drain(sess, count=True)
+        label = f"{probe} x{s}"
+        require(lp > 0 and lp % s == 0, f"{label}: {lp} lane_probe launches")
+        require(builds == 0, f"{label}: {builds} plan builds in a warm drain")
+        levels = lp // s
+        for a, b, c in zip(local, first, envs):
+            require(np.array_equal(b.topk_nodes, c.topk_nodes)
+                    and np.array_equal(b.topk_scores, c.topk_scores),
+                    f"{label}: two drains of the same queries differ")
+            require(c.variant == f"sharded[{probe}]", f"{label}: {c.variant}")
+            if probe == "spmd":
+                require(np.array_equal(a.topk_nodes, c.topk_nodes)
+                        and np.array_equal(a.topk_scores, c.topk_scores),
+                        f"{label}: node {a.node} differs from the local "
+                        "kernel serve in its bits")
+        err = 0.0 if probe == "spmd" else max(
+            topk_agree(a, c, FP32_RTOL) for a, c in zip(local, envs))
+        wire = 0 if s == 1 else s * (s - 1) * st.rows * SHARD_W * 4
+        log(f"sharded {label}: device state built in {build_s:.2f} s "
+            f"(ELL blocks {s} x [{st.rows} x {st.k_max}], "
+            f"{sum(x.numel() for x in st.in_nbrs) * 4 / 1e9:.3f} GB); cold "
+            f"drain {first_s:.3f} s ({first_builds} plan builds), warm drain "
+            f"{secs:.3f} s ({secs / 2 * 1e3:.1f} ms per drained batch, local "
+            f"{local_s / 2 * 1e3:.1f}), {levels} levels, {lp} lane_probe "
+            f"launches ({s} a level), 0 plan builds; vs the local kernel "
+            + ("serve: bitwise equal" if probe == "spmd"
+               else f"serve: max |diff| {err:.3e}")
+            + f"; exchanged a level (computed, W={SHARD_W} fp32): "
+            f"{wire / 1e6:.1f} MB")
+        if probe == "ring":
+            ring_s = secs
+        if probe == "spmd" and s == SHARD_S:
+            be.use_kernel = False
+            off, off_s, _, _ = drain(sess)
+            be.use_kernel = True
+            be.frontier_dtype = "bfloat16"
+            b16, b16_s, _, _ = drain(sess)
+            be.frontier_dtype = "float32"
+            off_err = max(topk_agree(a, b, FP32_RTOL) for a, b in zip(envs, off))
+            b16_err = max(topk_agree(a, b, BF16_RTOL) for a, b in zip(envs, b16))
+            log(f"sharded {label} variants: kernel off (COO push) {off_s:.3f} s,"
+                f" max |diff| {off_err:.3e} <= {FP32_RTOL}; bf16 exchange "
+                f"{b16_s:.3f} s, max |diff| {b16_err:.3e} <= {BF16_RTOL} "
+                f"(exchanged a level {wire / 2e6:.1f} MB, computed)")
+            for sp in specs[:8]:
+                sess.submit(sp)
+            counts = profile(f"sharded drain of 8 ({label})", sess.drain)
+            lv = sum(c for k, c in counts.items() if "lane_probe_kernel" in k)
+            log(f"profiled sharded drain: {lv} lane_probe launches")
+            gen = torch.Generator(device=SHARD_DEV)
+            gen.manual_seed(19)
+            shard_kernel_shapes(st, params, gen, full_lane_ms)
+            # an adaptive spec, bitwise against the local session's, then a
+            # host-path update: the device state is rebuilt from the host
+            u = int(nodes[2])
+            spec = QuerySpec(kind="single_source", node=u, epsilon=0.1, key=7)
+            a_loc = SimRankSession(h, walk_chunk=SHARD_W, batch_q=8,
+                                   own_graph=False).query(spec)
+            a_shd = sess.query(spec)
+            require(np.array_equal(a_loc.scores, a_shd.scores)
+                    and (a_loc.walks_used, a_loc.rounds, a_loc.certificate)
+                    == (a_shd.walks_used, a_shd.rounds, a_shd.certificate),
+                    "adaptive spec: sharded answer differs from the local one")
+            rep = sess.update(inserts=(np.array([u]), np.array([int(nodes[3])])))
+            sess.query(QuerySpec(kind="topk", node=int(nodes[3]), k=50, key=9))
+            require(rep.applied == 1 and sess.version == 1
+                    and be._epoch_graph is not st, "sharded update()")
+            shard_state_equals_rebuild(be)
+            log(f"sharded {label}: adaptive eps 0.1 bitwise equal to the local "
+                f"session's ({a_shd.walks_used} walks, {a_shd.rounds} rounds, "
+                f"{a_shd.certificate}); update() of 1 insert rebuilt the "
+                f"device state, equal to the rebuild")
+        del sess, be, st, envs, first
+        torch.cuda.empty_cache()
+
+    shard_service(h, launches)
+
+    # --- 16 mixed epochs at 4 blocks, phase 5's ops ------------------------
+    src, dst = h.to_host_edges()
+    m = len(src)
+    mesh = ShardMesh([SHARD_DEV] * SHARD_S)
+    rows = -(-n // SHARD_S)
+    live = int(np.bincount(dst // rows, minlength=SHARD_S).max())
+    state = ShardedGraphState(src, dst, n, shards=SHARD_S,
+                              capacity_per_shard=live + m // SHARD_S)
+    sess = SimRankSession(
+        ShardedBackend(state, params=params, mesh=mesh, walk_chunk=SHARD_W),
+        batch_q=8, update_batch=64, top_k=50, seed=0)
+    be = sess.backend
+    st = be._epoch_graph_state()
+    host = HostEdges(src, dst, n, capacity=1 << 40, k_max=st.k_max)
+    deg = host.in_deg()
+    hub = int(np.argmax(deg))
+    rng = np.random.default_rng(16)
+    short = int(rng.choice(np.flatnonzero((deg >= 1) & (deg <= 16))))
+    run_epoch = epoch_runner(sess, launches)
+
+    def queue(s, d, ins):
+        for flag in (False, True):  # deletes first: no insert->delete cut
+            sel = ins == flag
+            if sel.any():
+                sess.queue_update(s[sel], d[sel], insert=flag)
+
+    def same_edges():
+        bs, bd = be.to_host_edges()
+        a = np.sort(bs.astype(np.int64) * n + bd)
+        b = np.sort(host.src.astype(np.int64) * n + host.dst)
+        require(np.array_equal(a, b), "sharded edges differ from the host replay")
+
+    walls = []
+    for e in range(1, DYN_EPOCHS + 1):
+        ds, dd = pick_deletes(rng, host, hub, 8, 24)
+        is_ = rng.integers(0, n, 32).astype(np.int32)
+        id_ = rng.integers(0, n, 32).astype(np.int32)
+        id_[:4] = hub
+        if e <= 8:
+            id_[4:24] = short
+        s = np.concatenate([ds, is_]).astype(np.int32)
+        d = np.concatenate([dd, id_]).astype(np.int32)
+        ins = np.arange(64) >= 32
+        want = host.apply(s, d, ins)
+        queue(s, d, ins)
+        tickets = [sess.submit(int(u)) for u in
+                   rng.choice(np.flatnonzero(host.in_deg() >= 1), 8,
+                              replace=False)]
+        ep, got, wall, _ = run_epoch()
+        require(ep.updates_submitted == 64 and np.array_equal(got[:64], want),
+                f"sharded epoch {e}: applied mask differs from the host replay")
+        require(ep.version == host.batches == e and not ep.overflow,
+                f"sharded epoch {e}: version {ep.version} overflow "
+                f"{ep.overflow}")
+        require(len(ep.results) == 8
+                and ep.results[0].variant == "sharded[spmd]",
+                f"sharded epoch {e}: results")
+        walls.append(wall)
+        if e in DYN_CHECKED:
+            shard_state_equals_rebuild(be)
+            same_edges()
+        if e == DYN_EPOCHS:
+            # the epoch's answers against a serve of the same queries, same
+            # seeds, on the state the epoch wrote (another lane layout)
+            seeds = [derive_seed(sess.seed, t.seq) for t in tickets]
+            _, idx, vals = be.serve_batch("topk", [t.spec.node for t in tickets],
+                                          seeds, k=50, n_r=params.n_r)
+            diff = max(topk_agree(r, _TopK(i, v), FP32_RTOL)
+                       for r, i, v in zip(ep.results, idx, vals))
+            log(f"sharded epoch {e}: top-k vs a serve on the written state, "
+                f"same seeds: max |diff| {diff:.3e}")
+    log(f"sharded epochs: {DYN_EPOCHS} of 64 ops (32 deletes, 32 inserts) + 8 "
+        f"top-k queries at {SHARD_S} blocks; epoch wall ms {np.mean(walls):.2f} "
+        f"mean ({min(walls):.2f} .. {max(walls):.2f}); every block equal to "
+        f"the rebuild after epochs {DYN_CHECKED}")
+
+    # forced overflow: one insert past the hub row's room
+    room = st.k_max - int(host.in_deg()[hub])
+    s0 = int(rng.integers(0, n))
+    sess.queue_update(np.full(room + 1, s0), np.full(room + 1, hub))
+    eps = []
+    while sess.pending[0]:
+        ep, got, wall, _ = run_epoch()
+        k = ep.updates_submitted
+        want = host.apply(np.full(k, s0), np.full(k, hub), np.ones(k, bool))
+        require(np.array_equal(got[:k], want) and ep.version == host.batches,
+                f"overflow epoch {len(eps) + 1}: applied mask or version")
+        if ep.regrown:
+            host.k_max = max(int(host.in_deg().max()) + 8, 16)  # the rebuild's
+        eps.append(ep)
+    require(sum(ep.regrown for ep in eps) == 1 and sess.stats.regrows == 1
+            and sum(ep.updates_applied for ep in eps) == room + 1
+            and not sess.overflow,
+            f"forced overflow: {[ep.regrown for ep in eps]} regrown, "
+            f"{sess.stats.regrows} regrows")
+    sess.submit(int(nodes[0]))
+    ep, _, wall, _ = run_epoch()
+    st = be._epoch_graph
+    shard_state_equals_rebuild(be)
+    same_edges()
+    log(f"sharded forced overflow: {room + 1} inserts into the hub row "
+        f"({room} fit), {len(eps)} update-only epochs, 1 regrow: capacity per "
+        f"shard {be.state.capacity_per_shard}, K {st.k_max}; blocks equal to "
+        f"the rebuild; a serve epoch after it {wall:.2f} ms")
+    del sess, be, st, state
+    torch.cuda.empty_cache()
+    log(f"shard phase: {time.perf_counter() - t_phase:.1f} s; launches in its "
+        f"counted windows {launches}; card: {card()}")
+    require(launches["lane_probe"] > 0, "the shard phase launched no lane_probe")
+    return launches
+
+
 STREAM_N = 34_546
 STREAM_RATE = 20_000 * STREAM_N // 2_000
 STREAM_HORIZON = 1.0
@@ -2264,14 +2669,55 @@ def stream_log(what, rep, sess_stats=None) -> None:
            f"; epochs {sess_stats.epochs}, regrows {sess_stats.regrows}"))
 
 
+def sharded_stream_leg(n, rate, horizon, slo, empty, launches, dev) -> None:
+    """bench_stream's sharded leg: the steady scenario at half the rate for
+    half the horizon, through drains, over 4 row blocks of ``dev``; every
+    op applied and the live edges equal to the window's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import SimRankSession
+    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.streams import (
+        SessionTransport,
+        StreamDriver,
+        poisson_edge_stream,
+    )
+
+    stream = poisson_edge_stream(n, rate=rate // 2, horizon=horizon / 2,
+                                 seed=0)
+    sess = SimRankSession(empty(), c=0.6, top_k=10, batch_q=4, seed=0,
+                          update_batch=STREAM_UPDATE_BATCH, backend="sharded",
+                          mesh=ShardMesh([dev] * SHARD_S))
+    drv = StreamDriver(SessionTransport(sess, mode="drain"), stream, ttl=0.5,
+                       queries_per_tick=1, slo=slo, seed=0, **STREAM_DRIVER)
+    rep = counted(drv.run, launches)
+    torch.cuda.synchronize()
+    require(rep.updates_applied == rep.arrivals + rep.expired
+            and not rep.sticky_overflow and rep.queries > 0,
+            f"sharded stream: {rep.updates_applied} applied, {rep.arrivals} "
+            f"arrivals, {rep.expired} expired")
+    src, dst = live_window(stream, 0.5, rep.ticks * STREAM_DRIVER["tick_s"])
+    hs, hd = sess.backend.to_host_edges()
+    require(np.array_equal(np.sort(src.astype(np.int64) * n + dst),
+                           np.sort(hs.astype(np.int64) * n + hd)),
+            "sharded stream: live edges differ from the window's")
+    stream_log(f"steady over {SHARD_S} blocks (TTL 0.5 s, drain, half rate "
+               f"and horizon: {len(stream)} arrivals)", rep, sess.stats)
+    del sess, drv
+    torch.cuda.empty_cache()
+
+
 def stream_phase(dev) -> dict:
     """``StreamDriver`` on the card at HepPh's node count, the four scenarios
     of benchmarks/bench_stream.py: steady (TTL 0.5 s) and turnover (TTL of
     two ticks, retired with ``final_expire``) through
     ``SessionTransport(mode="epoch")``, bursty (on/off at twice the rate,
     TTL 0.3 s) through ``ServiceTransport``, and pooled (TTL 0.5 s,
-    ``mode="drain"``, three checkpoints); each run's mirrors held against a
-    rebuild of its live window.  Returns each kernel's launches in the
+    ``mode="drain"``, three checkpoints), and the bench's sharded leg
+    (steady at half the rate and horizon, drains, 4 row blocks); each run's
+    mirrors held against a rebuild of its live window (the sharded leg's
+    live edges against the window).  Returns each kernel's launches in the
     runs."""
     import numpy as np
     import torch
@@ -2354,6 +2800,7 @@ def stream_phase(dev) -> dict:
         stream_log(f"bursty via the service (TTL 0.3 s, {len(bstream)} "
                    f"arrivals, on at {2 * rate} edges/s)", rep, sess.stats)
     torch.cuda.empty_cache()
+    sharded_stream_leg(n, rate, horizon, slo, empty, launches, dev)
     require(launches["lane_probe"] > 0,
             f"the stream runs launched no lane_probe: {launches}")
     log(f"stream phase: {time.perf_counter() - t_phase:.1f} s; launches "
@@ -2582,6 +3029,7 @@ def main() -> int:
     toy_accuracy(dev)
     acc_launches = accuracy_phase(h)
     svc_launches = service_phase(h)
+    shard_launches = shard_phase(h, params, nodes, rows["lane_probe"]["ms"])
     del h
     torch.cuda.empty_cache()
     dyn_launches = dynamic_phase(dev)
@@ -2594,7 +3042,8 @@ def main() -> int:
     # is on no path (the reference calls it only from its tests)
     for name, row in rows.items():
         row["launches"] = (launches[name] + acc_launches[name]
-                           + svc_launches[name] + dyn_launches[name]
+                           + svc_launches[name] + shard_launches[name]
+                           + dyn_launches[name]
                            + stream_launches[name] + lm_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

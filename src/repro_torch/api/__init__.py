@@ -5,10 +5,16 @@ regrow, snapshot metadata); ``QuerySpec`` / ``ResultEnvelope`` are the
 typed request/response pair; ``SimRankSession`` serves one-shot queries,
 queued fused batches (``submit`` -> ``QueryTicket``; ``drain``), immediate
 updates (``update`` -> ``UpdateReport``) and fused update->query epochs
-(``epoch`` -> ``EpochResult``) through ``LocalBackend``; a spec with
+(``epoch`` -> ``EpochResult``) through ``LocalBackend`` or, over
+destination row blocks on a ``ShardMesh``, ``ShardedBackend``; a spec with
 ``epsilon`` set escalates its walks until a certificate meets it.
 """
-from repro_torch.api.backend import Backend, LocalBackend
+from repro_torch.api.backend import (
+    Backend,
+    LocalBackend,
+    ShardedBackend,
+    ShardedGraphState,
+)
 from repro_torch.api.handle import GraphHandle
 from repro_torch.api.session import (
     EngineStats,
@@ -29,6 +35,8 @@ __all__ = [
     "QuerySpec",
     "QueryTicket",
     "ResultEnvelope",
+    "ShardedBackend",
+    "ShardedGraphState",
     "SimRankSession",
     "UpdateReport",
     "abs_error_bound",

@@ -15,7 +15,8 @@ snapshot metadata (``version``, ``overflow``) and the recovery path
 
 ``apply_batch`` writes the mirrors' tensors in place (``graph/dynamic.py``),
 so whoever holds ``h.g`` / ``h.eg`` sees the new snapshot; ``copy()`` is
-the way to keep an old one.  Mesh placement (``shard``) is not ported yet.
+the way to keep an old one; ``shard()`` places a snapshot's edges in the
+destination row blocks of the sharded backend.
 """
 from __future__ import annotations
 
@@ -182,9 +183,45 @@ class GraphHandle:
         if eg is not None:
             self.eg = _clone(eg) if copy else eg
 
-    def shard(self, **kwargs):
-        raise NotImplementedError(
-            "sharded placement is not ported yet (ROADMAP queue 1 item 12)"
+    def shard(
+        self,
+        *,
+        shards: int | None = None,
+        mesh=None,
+        capacity_per_shard: int | None = None,
+    ):
+        """Destination-partitioned copy of this handle's live edges.
+
+        Returns a :class:`repro_torch.api.backend.ShardedGraphState`: per-shard
+        host edge buffers (``partition_edges_by_dst`` layout, with this
+        handle's spare COO capacity spread over the shards as headroom),
+        from which the sharded backend builds its device state.  It starts
+        at this handle's ``version`` and does not follow later updates of
+        the handle: it is a placement of the current snapshot, as ``copy()``
+        is.  ``shards`` defaults to the size of ``mesh`` (a ``ShardMesh``),
+        else to the number of visible CUDA devices.
+        """
+        from repro_torch.api.backend import ShardedGraphState
+        from repro_torch.graph.partition import pad_to_multiple
+
+        if shards is None:
+            shards = (mesh.shards if mesh is not None
+                      else max(torch.cuda.device_count(), 1))
+        src, dst = self.to_host_edges()
+        if capacity_per_shard is None and self.capacity > len(src):
+            # carry the handle's insertion headroom over, spread per shard
+            rows = pad_to_multiple(self.n, shards) // shards
+            per_shard_live = (
+                int(np.bincount(dst // rows, minlength=shards).max())
+                if len(dst) else 0
+            )
+            spare = self.capacity - len(src)
+            capacity_per_shard = per_shard_live + max(spare // shards, 1)
+        return ShardedGraphState(
+            src, dst, self.n,
+            shards=shards,
+            capacity_per_shard=capacity_per_shard,
+            version=self.version,
         )
 
 

@@ -1,5 +1,5 @@
 """`SimRankSession` — the query surface over a live graph (port of
-``repro.api.session``, local backend).
+``repro.api.session``).
 
     h = GraphHandle.from_edges(src, dst, n, device="cuda")
     sess = SimRankSession(h, eps_a=0.1, top_k=10, batch_q=8)
@@ -40,8 +40,9 @@ that budget.  Randomness: query ``seq`` of a session seeded ``seed`` draws
 from ``derive_seed(seed, seq)``, so batch composition never changes an
 answer.
 
-Not ported yet: ``backend="sharded"`` (ROADMAP queue 1 item 12) raises
-``NotImplementedError``.
+``backend="sharded"`` (with ``shards=``, ``mesh=`` a ``ShardMesh``, and
+``backend_options=`` for ``ShardedBackend``) serves the same surface over
+destination row blocks of the graph (``api/backend.py``).
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch.api.backend import Backend, LocalBackend
+from repro_torch.api.backend import Backend, LocalBackend, ShardedBackend
 from repro_torch.api.handle import GraphHandle
 from repro_torch.api.spec import QuerySpec, ResultEnvelope, as_spec
 from repro_torch.core.accuracy import (
@@ -164,21 +165,19 @@ def _occurrence_numbers(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
     return occ
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item {item})"
-    )
-
-
 class SimRankSession:
-    """SimRank serving session over a local :class:`Backend`.
+    """SimRank serving session over a :class:`Backend` (local or sharded).
 
     ``walk_chunk`` is the total lane-column width of the fused serve step;
     ``batch_q`` the fixed query width of ``drain()``/``epoch()`` batches
     (short batches are repeat-padded); ``update_batch`` the fixed op width
     of epoch update batches; ``top_k`` the default k.  ``use_kernel``
     (default True) runs every probe level through the lane-probe kernel on
-    a CUDA handle; ``kernel_dtype`` picks its storage type.
+    a CUDA handle; ``kernel_dtype`` picks its storage type (local backend).
+    ``backend="sharded"`` builds a :class:`ShardedBackend` over ``shards``
+    row blocks on ``mesh`` (default: one per visible CUDA device), with
+    ``backend_options`` passed through (``probe``, ``frontier_dtype``,
+    ``edge_chunks``, ``capacity_per_shard``).
 
     With ``auto_regrow`` (default), capacity overflow triggers a host-side
     compaction into 2x buffers and the skipped inserts are retried: no
@@ -220,41 +219,91 @@ class SimRankSession:
         kernel_dtype: str = "float32",
         own_graph: bool = True,
         backend: str | Backend = "local",
+        shards: int | None = None,
+        mesh=None,
+        backend_options: dict | None = None,
         initial_budget: int = 64,
         confidence: float = 0.99,
         hub_percentile: float = 90.0,
         probe_cache_entries: int = 256,
     ):
-        if isinstance(handle, GraphHandle):
-            if backend == "sharded":
-                _not_ported("backend='sharded'", 12)
-            if backend != "local":
+        if isinstance(handle, (LocalBackend, ShardedBackend)) or (
+            not isinstance(handle, GraphHandle) and isinstance(handle, Backend)
+        ):
+            if backend != "local":  # the untouched default
                 raise ValueError(
-                    f"backend must be 'local' or a Backend instance, "
-                    f"got {backend!r}"
+                    "pass either a Backend instance or backend=..., not both"
                 )
-            self.handle = handle.copy() if own_graph else handle
-            self._owns_graph = own_graph
-            self.params = make_params(handle.n, c=c, eps_a=eps_a, delta=delta)
-            self.backend: Backend = LocalBackend(
-                self.handle, params=self.params, walk_chunk=walk_chunk,
-                use_kernel=use_kernel, kernel_dtype=kernel_dtype,
-            )
-        elif isinstance(handle, Backend):
-            self.backend = handle
-            # a backend with the epoch stage own-copies its graph NOW, so
-            # epochs never write tensors the caller still holds
-            self._owns_graph = bool(handle.supports_epoch)
-            if self._owns_graph:
-                handle.own_buffers()
-            self.handle = getattr(handle, "handle", None)
-            self.params = getattr(handle, "params", None) or make_params(
-                handle.n, c=c, eps_a=eps_a, delta=delta
-            )
-        else:
+            backend, handle = handle, None
+        elif not isinstance(handle, GraphHandle):
             raise TypeError(
                 "SimRankSession takes a GraphHandle — build one with "
                 "GraphHandle.from_edges(src, dst, n, device=...)"
+            )
+        elif not isinstance(backend, str):
+            # a GraphHandle positional + a ready Backend instance: the
+            # handle would be silently shadowed by the backend's own graph
+            raise ValueError(
+                "a Backend instance brings its own graph state — pass it "
+                "as the first argument instead of a GraphHandle"
+            )
+        if isinstance(backend, str):
+            if backend == "local":
+                if shards is not None or mesh is not None or backend_options:
+                    # a forgotten backend="sharded" must not silently
+                    # build an unsharded session
+                    raise ValueError(
+                        "shards/mesh/backend_options only apply to "
+                        "backend='sharded' — did you forget to set it?"
+                    )
+                self.handle = handle.copy() if own_graph else handle
+                self._owns_graph = own_graph
+                self.params = make_params(handle.n, c=c, eps_a=eps_a,
+                                          delta=delta)
+                self.backend: Backend = LocalBackend(
+                    self.handle, params=self.params, walk_chunk=walk_chunk,
+                    use_kernel=use_kernel, kernel_dtype=kernel_dtype,
+                )
+            elif backend == "sharded":
+                if kernel_dtype != "float32":
+                    raise ValueError(
+                        "kernel_dtype applies to the local backend; the "
+                        "sharded one takes backend_options=dict("
+                        "frontier_dtype=...)"
+                    )
+                self.params = make_params(handle.n, c=c, eps_a=eps_a,
+                                          delta=delta)
+                self.backend = ShardedBackend(
+                    handle, params=self.params, shards=shards, mesh=mesh,
+                    walk_chunk=walk_chunk, use_kernel=use_kernel,
+                    **(backend_options or {}),
+                )
+                # the sharded state owns a partitioned copy of the edges;
+                # the constructor handle is not kept (it would go stale on
+                # the first shard-wise update)
+                self.handle = None
+                self._owns_graph = True
+            else:
+                raise ValueError(
+                    f"backend must be 'local', 'sharded' or a Backend "
+                    f"instance, got {backend!r}"
+                )
+        else:
+            if shards is not None or mesh is not None or backend_options:
+                raise ValueError(
+                    "shards/mesh/backend_options configure session-built "
+                    "backends; a ready Backend instance already carries "
+                    "its geometry — construct it with those options"
+                )
+            self.backend = backend
+            # a backend with the epoch stage own-copies its graph NOW, so
+            # epochs never write tensors the caller still holds
+            self._owns_graph = bool(backend.supports_epoch)
+            if self._owns_graph:
+                backend.own_buffers()
+            self.handle = getattr(backend, "handle", None)
+            self.params = getattr(backend, "params", None) or make_params(
+                backend.n, c=c, eps_a=eps_a, delta=delta
             )
         if initial_budget < 1:
             raise ValueError("initial_budget must be >= 1")

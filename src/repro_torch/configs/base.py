@@ -4,8 +4,8 @@ Each ported architecture registers one module in this package exposing
 ``CONFIG`` (full scale, the published numbers) and ``SMOKE`` (reduced,
 CPU-runnable).  The dataclasses are the reference's, field for field, so a
 config compares equal across the two packages.  Only the LM family is
-ported; the GNN, recsys and ProbeSim-family configs wait for their slices
-(ROADMAP queue 1 item 14).
+ported; the GNN and recsys configs wait for their slices (ROADMAP queue 1
+item 14), the ProbeSim family for the production-mesh step (item 12b).
 """
 from __future__ import annotations
 
@@ -135,8 +135,12 @@ NOT_PORTED = (
 def get_config(arch: str, smoke: bool = False):
     if arch not in _MODULE_OF:
         if arch in NOT_PORTED:
+            # the probesim family (the production-mesh serve step) belongs
+            # with the rest of the sharded path's production-mesh pieces
+            item = "12b" if arch == "probesim" else "14"
             raise NotImplementedError(
-                f"config {arch!r} is not ported yet (ROADMAP queue 1 item 14)"
+                f"config {arch!r} is not ported yet (ROADMAP queue 1 item "
+                f"{item})"
             )
         raise KeyError(arch)
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch]}")

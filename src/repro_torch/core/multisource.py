@@ -160,20 +160,8 @@ def fused_serve(
     )
 
     # --- walk pool: all Q x n_r walks at once -----------------------------
-    if uniforms is None:
-        if seeds is None or len(seeds) != q:
-            raise ValueError("fused_serve needs one seed per query")
-        gens = [make_generator(s, dev) for s in seeds]
-        cont, pick = batch_uniforms(
-            gens, n_r=n_r, max_len=max_len, sqrt_c=sqrt_c, device=dev
-        )
-    else:
-        cont, pick = (torch.as_tensor(x).to(dev) for x in uniforms)
-        if tuple(cont.shape) != (q, n_r, max_len - 1):
-            raise ValueError(
-                f"uniforms must be [Q={q}, n_r={n_r}, {max_len - 1}], "
-                f"got {tuple(cont.shape)}"
-            )
+    cont, pick = query_uniforms(q, seeds=seeds, uniforms=uniforms, n_r=n_r,
+                                max_len=max_len, sqrt_c=sqrt_c, device=dev)
     pool = walks_from_uniforms(
         eg,
         us.repeat_interleave(n_r),
@@ -243,10 +231,42 @@ def fused_serve(
     total = total + torch.where((pos == 1)[None, :], scores, torch.zeros_like(scores))
 
     # --- per-query segment reduction + epilogue ---------------------------
-    est = total[:n].float().reshape(n, q, wq).sum(dim=2).T / n_r
+    return serve_epilogue(
+        total[:n].float().reshape(n, q, wq).sum(dim=2).T, us, n_r=n_r,
+        eps_t=eps_t, truncation_shift=truncation_shift, top_k=top_k,
+    )
+
+
+def query_uniforms(q: int, *, seeds, uniforms, n_r: int, max_len: int,
+                   sqrt_c: float, device) -> tuple[Tensor, Tensor]:
+    """The walk draws of a Q-query batch, ``[Q, n_r, max_len - 1]`` each:
+    drawn from one generator per seed on ``device``, or the injected
+    ``uniforms=(cont, pick)`` moved there."""
+    if uniforms is None:
+        if seeds is None or len(seeds) != q:
+            raise ValueError("fused_serve needs one seed per query")
+        gens = [make_generator(s, device) for s in seeds]
+        return batch_uniforms(
+            gens, n_r=n_r, max_len=max_len, sqrt_c=sqrt_c, device=device
+        )
+    cont, pick = (torch.as_tensor(x).to(device) for x in uniforms)
+    if tuple(cont.shape) != (q, n_r, max_len - 1):
+        raise ValueError(
+            f"uniforms must be [Q={q}, n_r={n_r}, {max_len - 1}], "
+            f"got {tuple(cont.shape)}"
+        )
+    return cont, pick
+
+
+def serve_epilogue(acc: Tensor, us: Tensor, *, n_r: int, eps_t: float,
+                   truncation_shift: bool, top_k: int):
+    """Per-query sums ``acc`` [Q, n] -> ``(est, topk_idx, topk_vals)``:
+    1/n_r, the truncation shift, the diagonal fix-up and top-k (None when
+    ``top_k == 0``)."""
+    est = acc / n_r
     if truncation_shift:
         est = torch.where(est > 0, est + eps_t / 2, est)
-    rows = torch.arange(q, device=dev)
+    rows = torch.arange(est.shape[0], device=est.device)
     est[rows, us.long()] = 1.0
     if top_k > 0:
         idx, vals = topk_rows(est, us, top_k)

@@ -1,0 +1,262 @@
+"""Ring push over a :class:`~repro_torch.launch.mesh.ShardMesh` (port of
+``repro.core.ring``).
+
+The all-gather push (``core/distributed.py``) hands every shard the whole
+frontier each level.  The ring instead keeps one row block resident per
+shard and an edge bucket per ``(dst_shard = me, src_block)``
+(``graph/partition.py::partition_edges_2d``): each of S steps pushes the
+resident block's bucket, then passes the block to the next shard
+(``ShardMesh.ring_shift``), so a level moves exactly one frontier's worth
+of rows.  The pushes are ``index_add_`` over each bucket's live prefix
+(JAX code outside any kernel in the JAX package); accumulation is fp32,
+and ``probe_walks_ring`` can carry its frontier in bf16.
+
+``probe_lanes_ring`` runs the compacted lane loop with the ring push; with
+``use_kernel`` each level's prologue (deposit, injection, pruning) is one
+``lane_probe`` launch per shard in its identity form: each row's one
+"neighbor" is itself (``K = 1``, weight 1, ``tab0 = 0``: the table is the
+resident block), and the exclusion follows the push.
+
+``make_ring_serve_step`` and ``ring_graph_abstract`` (the production-mesh
+step and its dry-run shapes) are not ported (ROADMAP queue 1 item 12b).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.distributed import (
+    lane_level,
+    lane_probe_block,
+    push_weights,
+    row_ids,
+)
+from repro_torch.graph.partition import pad_to_multiple, partition_edges_2d
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class RingGraph:
+    """2-D partitioned edges, one row of buckets per shard.
+
+    ``src_sh[s]`` / ``dst_sh[s]`` are int32 ``[S, E]`` on shard s's device:
+    bucket ``(s, b)`` holds the edges into block s from block b, source ids
+    relative to block b and destination ids relative to block s, live edges
+    first and sentinel ``rows`` after them; ``counts[s][b]`` is that
+    bucket's live edge count (host ints).  ``in_deg`` is an ``[n_pad]``
+    replica per shard.
+    """
+
+    src_sh: list
+    dst_sh: list
+    counts: list
+    in_deg: list
+    n: int
+    n_pad: int
+    shards: int
+    mesh: object
+
+    @property
+    def rows(self) -> int:
+        return self.n_pad // self.shards
+
+
+def ring_graph_from_parts(src_sh, dst_sh, in_deg, n: int, mesh) -> RingGraph:
+    """Place host ``[S, S, E]`` buckets and an ``[n_pad]`` degree vector on
+    the mesh (live edges must come first in every bucket)."""
+    s_count = mesh.shards
+    src_sh = np.asarray(src_sh, np.int32)
+    dst_sh = np.asarray(dst_sh, np.int32)
+    n_pad = pad_to_multiple(n, s_count)
+    rows = n_pad // s_count
+    if src_sh.shape[:2] != (s_count, s_count) or dst_sh.shape != src_sh.shape:
+        raise ValueError(
+            f"ring buckets must be [S={s_count}, S, E], got {src_sh.shape} "
+            f"and {dst_sh.shape}"
+        )
+    live = src_sh < rows
+    counts = live.sum(axis=2)
+    e = src_sh.shape[2]
+    if not (live == (np.arange(e) < counts[..., None])).all():
+        raise ValueError("ring buckets must hold their live edges first")
+    deg = torch.from_numpy(np.array(in_deg, np.int32).reshape(n_pad))
+    return RingGraph(
+        src_sh=[torch.from_numpy(src_sh[s]).to(d)
+                for s, d in enumerate(mesh.devices)],
+        dst_sh=[torch.from_numpy(dst_sh[s]).to(d)
+                for s, d in enumerate(mesh.devices)],
+        counts=[[int(c) for c in row] for row in counts],
+        in_deg=mesh.replicate(deg),
+        n=int(n), n_pad=int(n_pad), shards=s_count, mesh=mesh,
+    )
+
+
+def build_ring_graph(src: np.ndarray, dst: np.ndarray, n: int, *,
+                     mesh) -> RingGraph:
+    """The ring layout of a host edge list over ``mesh``'s S shards."""
+    part = partition_edges_2d(src, dst, n, mesh.shards)
+    in_deg = np.zeros(part["n_pad"], np.int32)
+    in_deg[:n] = np.bincount(np.asarray(dst), minlength=n)[:n]
+    return ring_graph_from_parts(part["src_sh"], part["dst_sh"], in_deg, n,
+                                 mesh)
+
+
+def ring_graph_abstract(*args, **kwargs):
+    raise NotImplementedError(
+        "core.ring.ring_graph_abstract (dry-run shapes) is not ported to "
+        "repro_torch yet (ROADMAP queue 1 item 12b)"
+    )
+
+
+def make_ring_serve_step(*args, **kwargs):
+    raise NotImplementedError(
+        "core.ring.make_ring_serve_step (the production-mesh step) is not "
+        "ported to repro_torch yet (ROADMAP queue 1 item 12b)"
+    )
+
+
+def _ring_push_level(bufs: list[Tensor], rg: RingGraph) -> list[Tensor]:
+    """One full frontier pass of the ring: returns each shard's
+    un-renormalized push accumulator [rows, C] in fp32.
+
+    ``bufs[s]`` is block s, resident on shard s.  At step t shard s holds
+    block ``(s - t) mod S``, adds its bucket's live prefix, and passes the
+    block on (no pass after the last step).
+    """
+    mesh, s_count, rows = rg.mesh, rg.shards, rg.rows
+    accs = [torch.zeros((rows, b.shape[1]), dtype=torch.float32,
+                        device=b.device) for b in bufs]
+    for step in range(s_count):
+        for me in range(s_count):
+            blk = (me - step) % s_count
+            c = rg.counts[me][blk]
+            if c:
+                src = rg.src_sh[me][blk, :c].long()
+                dst = rg.dst_sh[me][blk, :c].long()
+                accs[me].index_add_(0, dst, bufs[me][src].float())
+        if step < s_count - 1:
+            bufs = mesh.ring_shift(bufs)
+    return accs
+
+
+def probe_walks_ring(
+    rg: RingGraph,
+    walks: Tensor,  # int32 [C, L] (sentinel >= n_pad, or n)
+    *,
+    sqrt_c: float,
+    eps_p: float = 0.0,
+    frontier_dtype=torch.float32,
+) -> Tensor:
+    """Telescoped probe with the ring push; returns scores [n_pad, C] on
+    shard 0's device.  The frontier blocks are carried (and passed) in
+    ``frontier_dtype``; pushes accumulate in fp32."""
+    mesh = rg.mesh
+    c, length = walks.shape
+    rids = row_ids(mesh, rg.rows)
+    cols = mesh.broadcast(walks)
+    w = push_weights(rg, sqrt_c)
+    scores = [torch.zeros((rg.rows, c), dtype=frontier_dtype, device=d)
+              for d in mesh.devices]
+    for p in range(length, 1, -1):
+        for s in range(rg.shards):
+            sc = scores[s] + (rids[s] == cols[s][:, p - 1][None, :]).to(
+                frontier_dtype)
+            if eps_p > 0.0:
+                thresh = eps_p / (sqrt_c ** (p - 1))
+                sc = torch.where(sc > thresh, sc, torch.zeros_like(sc))
+            scores[s] = sc
+        accs = _ring_push_level(scores, rg)
+        scores = [
+            torch.where(rids[s] == cols[s][:, p - 2][None, :],
+                        torch.zeros((), dtype=frontier_dtype, device=a.device),
+                        (a * w[s][:, None]).to(frontier_dtype))
+            for s, a in enumerate(accs)
+        ]
+    return mesh.gather_rows(scores)
+
+
+_IDENTITY: dict = {}
+
+
+def _identity_rows(device, row0: int, rows: int):
+    """The ring kernel prologue's operands for one block: own-row ids
+    [rows, 1], unit weights and unit row lengths.  The row lengths are one
+    tensor per (device, rows), shared by every shard there, so the
+    kernels' chunk plan is built once for all of them."""
+    key = (torch.device(device), rows)
+    ones = _IDENTITY.get(key)
+    if ones is None:
+        ones = _IDENTITY[key] = torch.ones(rows, dtype=torch.int32,
+                                           device=device)
+    ident = (row0 + torch.arange(rows, dtype=torch.int32, device=device))
+    return ident[:, None].contiguous(), ones.float(), ones
+
+
+def probe_lanes_ring(
+    rg: RingGraph,
+    w: list[Tensor],  # f32 [rows] per shard: push weights of its rows
+    pool: Tensor,  # int32 [Q * n_r, L] on shard 0's device (sentinel n)
+    pool_len: Tensor,
+    *,
+    q: int,
+    wq: int,
+    n_r: int,
+    max_len: int,
+    sqrt_c: float,
+    eps_p: float,
+    sentinel: int,
+    use_kernel: bool = True,
+) -> Tensor:
+    """Lane-batched telescoped probe with the ring push; returns ``total``
+    [n_pad, W] on shard 0's device.
+
+    The ring counterpart of ``core.distributed.probe_lanes_sharded``.  With
+    ``use_kernel`` each level's deposit + inject + prune is one identity
+    ``lane_probe`` launch per shard (the push cannot ride inside the
+    kernel, since it runs through the ring), then the ring push, the
+    weights and the exclusion.
+    """
+    mesh, rows = rg.mesh, rg.rows
+    width = q * wq
+
+    def push(blocks):
+        return [a * ws[:, None] for a, ws in zip(_ring_push_level(blocks, rg), w)]
+
+    if use_kernel:
+        from repro_torch.kernels.lane_probe.ops import lane_probe_level
+
+        ops = [_identity_rows(d, s * rows, rows)
+               for s, d in enumerate(mesh.devices)]
+        no_excl = [torch.full((width,), sentinel, dtype=torch.int32, device=d)
+                   for d in mesh.devices]
+        rids = row_ids(mesh, rg.rows)
+
+        def level_fn(scores, total, vecs):
+            prepped = []
+            for s, (fin, u_p, _, thr) in enumerate(vecs):
+                ident, ones, row_len = ops[s]
+                prep, _ = lane_probe_level(
+                    ident, ones, scores[s], scores[s], total[s],
+                    fin, u_p, no_excl[s], thr, row_len=row_len,
+                    row0=s * rows, tab0=0, n_live=sentinel,
+                    prune=eps_p > 0.0, tot=total[s],
+                )
+                prepped.append(prep)
+            out = [
+                torch.where(rids[s] == vecs[s][2][None, :],
+                            torch.zeros((), device=p.device), p)
+                for s, p in enumerate(push(prepped))
+            ]
+            return out, total
+    else:
+        level_fn = lane_level(push, mesh=mesh, rows=rows, eps_p=eps_p)
+
+    totals = lane_probe_block(
+        level_fn, pool, pool_len, mesh=mesh, rows=rows, q=q, wq=wq,
+        n_r=n_r, max_len=max_len, sqrt_c=sqrt_c, eps_p=eps_p,
+        sentinel=sentinel,
+    )
+    return mesh.gather_rows(totals)

@@ -4,9 +4,9 @@
 One ``GraphHandle`` owns both mirrors; one ``SimRankSession`` serves every
 query shape (single-source vectors, top-k lists, fused batches) and every
 update (immediate or fused update->query epochs).  Estimates are checked
-against the port's Power Method (Table 2), and the last leg serves the
-same graph over HTTP.  The reference's mesh-sharded leg is not ported yet
-(ROADMAP queue 1 item 12).
+against the port's Power Method (Table 2); one leg serves the graph cut
+into two destination row blocks (``backend="sharded"``), and the last leg
+serves it over HTTP.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 (the default device is the card).
@@ -91,6 +91,31 @@ def main(argv=None) -> None:
     if not all(res.version == 1 for res in ep.results):
         raise RuntimeError("epoch results do not see the update")
     print(f"session stats: {dsess.stats}")
+
+    # --- pluggable backends: the same surface, sharded --------------------
+    # backend="sharded" places a dst-partitioned copy of the graph in row
+    # blocks over a ShardMesh (here both blocks on one device; a machine
+    # with several cards passes ShardMesh(shards=N), one block per card).
+    # submit() returns a QueryTicket on every backend: poll()/result() for
+    # async consumption, drain() stays the synchronous collect-all.
+    from repro_torch.launch.mesh import ShardMesh
+
+    ssess = SimRankSession(handle, c=0.25, eps_a=0.05, top_k=3, seed=0,
+                           backend="sharded", mesh=ShardMesh([dev] * 2))
+    ticket = ssess.submit(0)
+    env = ticket.result(budget_walks=2048)
+    print(f"sharded top-3 for 'a' ({env.variant}):",
+          _named(env.topk_nodes, env.topk_scores))
+    ssess.update(inserts=([5], [0]))  # shard-wise apply, no index rebuild
+    if ssess.version != 1:
+        raise RuntimeError("the sharded update did not bump the version")
+    # epoch() runs on the shards too: each shard applies its ops to its
+    # own device buffers, then the probe runs on the updated blocks
+    ep = ssess.epoch(inserts=([5], [1]), queries=[0], budget_walks=512)
+    if not (ep.version == 2 and ep.results[0].version == 2):
+        raise RuntimeError("the sharded epoch does not see its update")
+    print(f"sharded epoch: {ep.updates_applied} update + "
+          f"{len(ep.results)} query ({ep.results[0].variant})")
 
     # --- serving over HTTP: the network front end (DESIGN.md §8) ----------
     # SimRankService cuts concurrent clients' queries into micro-batches

@@ -10,6 +10,11 @@ the JAX package's updates overwrite a padding slot, while the port's add
 onto the sentinel ``n`` they expect there, so any id above ``n`` becomes
 ``n`` and the live-prefix rules (``check_coo_prefix``,
 ``check_live_prefix``) are checked once, on ``device``.
+
+The sharded state converts the same way: ``shard_epoch_graph_from_arrays``
+takes the JAX package's ``ShardEpochGraph`` fields and
+``ring_graph_from_arrays`` its ``RingGraph`` buckets, placed on a
+``ShardMesh``.
 """
 from __future__ import annotations
 
@@ -129,3 +134,43 @@ def handle_from_arrays(
             overflow=overflow, device=device,
         ),
     )
+
+
+def shard_epoch_graph_from_arrays(
+    *,
+    src_sh,
+    dst_sh,
+    counts,
+    in_nbrs,
+    in_deg,
+    n: int,
+    mesh,
+):
+    """``core.epoch.ShardEpochGraph`` on ``mesh`` from the JAX package's
+    fields: COO buckets ``[S, E]`` (global ids, padding ``n_pad``),
+    ``counts`` [S], the ELL table ``[n_pad, k_max]`` (padding ``n``) and
+    ``in_deg`` [n_pad].  Padding ids above the sentinels become the
+    sentinels, and the padding rules are checked
+    (``core.epoch.check_shard_prefix``)."""
+    from repro_torch.core.epoch import shard_epoch_graph_from_parts
+    from repro_torch.graph.partition import pad_to_multiple
+
+    n_pad = pad_to_multiple(int(n), mesh.shards)
+    in_nbrs = np.minimum(np.asarray(in_nbrs, np.int32), n)
+    return shard_epoch_graph_from_parts(
+        np.minimum(np.asarray(src_sh, np.int32), n_pad),
+        np.minimum(np.asarray(dst_sh, np.int32), n_pad),
+        counts, in_nbrs, in_deg, int(n), k_max=int(in_nbrs.shape[1]),
+        mesh=mesh,
+    )
+
+
+def ring_graph_from_arrays(*, src_sh, dst_sh, in_deg, n: int, mesh):
+    """``core.ring.RingGraph`` on ``mesh`` from the JAX package's ring
+    buckets ``[S, S, E]`` (block-relative ids, padding ``rows``) and
+    ``in_deg`` [n_pad].  The JAX package's sampling CSR (``indptr``,
+    ``indices``) and edge count have no counterpart: the port samples off
+    the ELL blocks."""
+    from repro_torch.core.ring import ring_graph_from_parts
+
+    return ring_graph_from_parts(src_sh, dst_sh, in_deg, int(n), mesh)

@@ -154,19 +154,22 @@ def lane_probe_level(
     _check(nbrs, weights, table, dep, total, fin, u_p, u_prev, thr, row_len)
     if r == 0 or w == 0:
         return out, tot
-    plan = plan_of(row_len, k)
-    vec, tc, tiles = launch_layout(
-        w, table.element_size(), table.data_ptr(), dep.data_ptr(),
-        total.data_ptr(), out.data_ptr(), tot.data_ptr())
-    pargs, scratch = launch_args(plan, w, tiles)  # scratch lives past the call
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = _kernel(table.dtype)(
-        nbrs.data_ptr(), weights.data_ptr(), table.data_ptr(), dep.data_ptr(),
-        total.data_ptr(), fin.data_ptr(), u_p.data_ptr(), u_prev.data_ptr(),
-        thr.data_ptr(), out.data_ptr(), tot.data_ptr(), *pargs,
-        k, t, w, int(row0), int(tab0), int(n_live), int(bool(prune)),
-        int(inplace), vec, tc, tiles, stream,
-    )
+    # the launch goes to the tensors' card, whichever is current (the
+    # sharded backend drives one block per card from one thread)
+    with torch.cuda.device(table.device):
+        plan = plan_of(row_len, k)
+        vec, tc, tiles = launch_layout(
+            w, table.element_size(), table.data_ptr(), dep.data_ptr(),
+            total.data_ptr(), out.data_ptr(), tot.data_ptr())
+        pargs, scratch = launch_args(plan, w, tiles)  # lives past the call
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = _kernel(table.dtype)(
+            nbrs.data_ptr(), weights.data_ptr(), table.data_ptr(),
+            dep.data_ptr(), total.data_ptr(), fin.data_ptr(), u_p.data_ptr(),
+            u_prev.data_ptr(), thr.data_ptr(), out.data_ptr(), tot.data_ptr(),
+            *pargs, k, t, w, int(row0), int(tab0), int(n_live),
+            int(bool(prune)), int(inplace), vec, tc, tiles, stream,
+        )
     _build.check(rc, "lane_probe")
     lane_probe_level.launches += 1
     return out, tot

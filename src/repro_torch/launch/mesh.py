@@ -1,0 +1,111 @@
+"""`ShardMesh` — the device list the sharded backend runs on (the port's
+counterpart of the JAX package's ``("data", "model")`` mesh).
+
+One controller drives S row blocks, one per entry of ``devices``: block s
+holds rows ``[s * rows, (s + 1) * rows)`` of every frontier and lives on
+``devices[s]``.  The two exchanges a probe level needs are methods here:
+
+* ``all_gather_rows(blocks)`` gives every shard the whole ``[n_pad, W]``
+  frontier (fp32, or rounded to bf16 for the exchange and widened back);
+* ``ring_shift(bufs)`` moves block s to shard ``s + 1`` (mod S).
+
+Entries may repeat: ``ShardMesh(["cuda:0"] * 4)`` runs four real row
+blocks on one card, as the JAX package's forced host device count does on
+the CPU.  Then an all-gather is one ``torch.cat`` shared by every shard and
+a ring step is a rotation of the list.  On distinct devices both are peer
+copies (``Tensor.to``), ordered by PyTorch's cross-device copy.
+
+There is no data axis: the JAX package only replicates the same program
+over it, so it changes no answer.  ``ShardMesh()`` takes one shard per
+visible CUDA device; ``shards=S`` takes the first S of them and requires
+the device count to be divisible by S.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.graph.structs import resolve_device
+
+Tensor = torch.Tensor
+
+WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class ShardMesh:
+    """An explicit list of S devices, one per row block."""
+
+    def __init__(self, devices=None, *, shards: int | None = None):
+        if devices is None:
+            ndev = torch.cuda.device_count()
+            if ndev == 0:
+                raise RuntimeError(
+                    "CUDA is not available; pass devices=['cpu'] * shards "
+                    "to run the shards on the CPU"
+                )
+            s = ndev if shards is None else int(shards)
+            if s < 1 or ndev % s:
+                raise ValueError(
+                    f"{s} shards need a device count divisible by {s}; "
+                    f"have {ndev} (pass an explicit mesh= to override)"
+                )
+            devices = [f"cuda:{i}" for i in range(s)]
+        devices = tuple(resolve_device(d) for d in devices)
+        if not devices:
+            raise ValueError("a ShardMesh needs at least one device")
+        if shards is not None and int(shards) != len(devices):
+            raise ValueError(
+                f"shards={shards} != {len(devices)} devices in the mesh"
+            )
+        self.devices = devices
+        # one device for every block: exchanges are a cat and a rotation
+        self.single_device = len(set(devices)) == 1
+
+    @property
+    def shards(self) -> int:
+        return len(self.devices)
+
+    @property
+    def home(self) -> torch.device:
+        """Shard 0's device: the lane cursors, walk pools and answers."""
+        return self.devices[0]
+
+    def __repr__(self) -> str:
+        return f"ShardMesh({[str(d) for d in self.devices]})"
+
+    def broadcast(self, x: Tensor) -> list[Tensor]:
+        """``x`` on every shard's device, read-only (no copy on its own
+        device)."""
+        return [x.to(d) for d in self.devices]
+
+    def replicate(self, x: Tensor) -> list[Tensor]:
+        """A copy of ``x`` for every shard, each its own tensor even where
+        two shards share a device (per-shard state written per shard)."""
+        return [x.to(d, copy=True) for d in self.devices]
+
+    def all_gather_rows(self, blocks: list[Tensor], *,
+                        wire: str = "float32") -> list[Tensor]:
+        """Every shard's view of the whole frontier: the S ``[rows, W]``
+        blocks stacked in row order, on each shard's device.  With
+        ``wire="bfloat16"`` the blocks cross as bf16 and are widened back
+        to fp32 on arrival."""
+        dt = WIRE_DTYPES[wire]
+        sent = [b.to(dt) for b in blocks]
+        if self.single_device:
+            full = torch.cat(sent)
+            if dt != torch.float32:
+                full = full.float()
+            return [full] * self.shards
+        out = []
+        for d in self.devices:
+            full = torch.cat([b.to(d) for b in sent])
+            out.append(full.float() if dt != torch.float32 else full)
+        return out
+
+    def ring_shift(self, bufs: list[Tensor]) -> list[Tensor]:
+        """Block s moves to shard s + 1 (mod S)."""
+        s = self.shards
+        return [bufs[(i - 1) % s].to(self.devices[i]) for i in range(s)]
+
+    def gather_rows(self, blocks: list[Tensor]) -> Tensor:
+        """The S blocks stacked in row order on the home device."""
+        return torch.cat([b.to(self.home) for b in blocks])

@@ -8,8 +8,13 @@ top-k results; optional straggler policy wraps dispatch.  The graph lives
 on ``--device`` (default ``cuda``; ``--device cpu`` runs the kernels'
 plain versions).
 
-``--backend sharded`` is not ported yet and raises ``NotImplementedError``
-(ROADMAP queue 1 item 12).
+``--backend sharded --shards N`` serves the same stream through the
+sharded backend (the graph cut into N destination row blocks on a
+``ShardMesh``; N defaults to the number of visible CUDA devices).  With
+``--device cuda`` the blocks go one per visible card (the count must be
+divisible by N); a device with an index (``cuda:0``) or ``cpu`` holds all N
+blocks.  Updates then apply shard-wise, with the same version and overflow
+semantics.
 
 ``--epochs`` fuses each update burst WITH its query into one epoch
 (``SimRankSession.epoch``: the burst is written into the mirrors in place,
@@ -35,6 +40,7 @@ Usage:
       --queries 20 --updates-per-batch 100 --eps-a 0.1
   python -m repro_torch.launch.serve --queries 20 --epsilon 0.1 --deadline-s 2.0
   python -m repro_torch.launch.serve --epochs
+  python -m repro_torch.launch.serve --backend sharded --shards 4 --epochs
   python -m repro_torch.launch.serve --serve --port 8311 --walk-budget 512
   python -m repro_torch.launch.serve --device cpu --nodes 300 --edges 2000
 """
@@ -83,7 +89,7 @@ def main(argv=None) -> list | None:
     ap.add_argument("--backend", choices=("local", "sharded"), default="local")
     ap.add_argument("--shards", type=int, default=None,
                     help="row-partition count for --backend sharded "
-                         "(not ported yet)")
+                         "(default: the CUDA device count)")
     ap.add_argument("--epochs", action="store_true",
                     help="serve each update burst + query as ONE fused "
                          "epoch instead of update() + query()")
@@ -107,11 +113,6 @@ def main(argv=None) -> list | None:
                  "queries are served by the host-side escalation loop and "
                  "cannot ride inside a fused --epochs dispatch — drop one "
                  "of the two flags")
-    if args.backend == "sharded":
-        raise NotImplementedError(
-            "--backend sharded is not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 12)"
-        )
 
     from repro_torch.graph import powerlaw_graph
 
@@ -125,19 +126,24 @@ def main(argv=None) -> list | None:
         device=args.device,
     )
 
+    mesh = _mesh(args) if args.backend == "sharded" else None
+
     if args.serve:
-        _serve_forever(handle, args, n=n, m=len(src))
+        _serve_forever(handle, args, mesh, n=n, m=len(src))
         return None
 
     sess = SimRankSession(
         handle, c=args.c, eps_a=args.eps_a, top_k=args.top_k, seed=args.seed,
+        backend=args.backend, mesh=mesh,
         batch_q=1, update_batch=args.updates_per_batch,
     )
     # the batch dispatch label names the step a Q-query burst lands on
+    # (e.g. "sharded[spmd,Q=1]"): backend + probe + query count
     print(f"graph: n={n} m={len(src)} on {handle.device}; "
           f"n_r={sess.params.n_r} walks/query (eps_a={args.eps_a}), "
           f"max_len={sess.params.max_len}; "
           f"dispatch={sess.backend.batch_dispatch_label(sess.batch_q)}"
+          + (f" mesh={mesh}" if mesh is not None else "")
           + (" [fused epochs]" if args.epochs else ""))
 
     query_nodes = rng.choice(np.where(in_deg > 0)[0], size=args.queries)
@@ -222,7 +228,22 @@ def main(argv=None) -> list | None:
     return served
 
 
-def _serve_forever(handle, args, *, n: int, m: int) -> None:
+def _mesh(args):
+    """The ``ShardMesh`` of ``--backend sharded``: one block per visible
+    card for ``--device cuda``, else every block on ``--device``."""
+    import torch
+
+    from repro_torch.launch.mesh import ShardMesh
+
+    shards = args.shards
+    if shards is None:
+        shards = max(torch.cuda.device_count(), 1)
+    if args.device == "cuda":
+        return ShardMesh(shards=shards)
+    return ShardMesh([args.device] * shards)
+
+
+def _serve_forever(handle, args, mesh, *, n: int, m: int) -> None:
     """--serve mode: run the HTTP service until interrupted."""
     from repro_torch.serving import (
         ServiceConfig,
@@ -233,6 +254,8 @@ def _serve_forever(handle, args, *, n: int, m: int) -> None:
 
     svc = SimRankService(
         handle,
+        backend=args.backend,
+        mesh=mesh,
         config=ServiceConfig(
             batch_window_ms=args.batch_window_ms,
             max_batch_q=args.max_batch_q,
@@ -245,7 +268,9 @@ def _serve_forever(handle, args, *, n: int, m: int) -> None:
     server, thread = start_server(svc, args.host, args.port)
     host, port = server.server_address
     print(f"serving n={n} m={m} on http://{host}:{port} "
-          f"(device={handle.device}, window={args.batch_window_ms}ms, "
+          f"(backend={args.backend}"
+          + (f" mesh={mesh}" if mesh is not None else f" device={handle.device}")
+          + f", window={args.batch_window_ms}ms, "
           f"batch_q={args.max_batch_q}, max_inflight={args.max_inflight}); "
           "POST /query /update, GET /stats /healthz; Ctrl-C to stop",
           flush=True)

@@ -29,8 +29,9 @@ envelope is ready":
 
 * **per-tenant sessions over shared graph state** — each tenant id maps to
   its own ``SimRankSession`` (separate seed namespace, stats, planner
-  caches) over ONE shared graph: every tenant session holds the same
-  ``GraphHandle`` (``own_graph=False``).  ``apply_update`` is serialized
+  caches) over ONE shared graph: on the local backend every tenant session
+  holds the same ``GraphHandle`` (``own_graph=False``), on the sharded
+  backend they share one ``ShardedBackend``.  ``apply_update`` is serialized
   against query dispatch and bumps the version every tenant's next answer
   observes.
 
@@ -52,10 +53,9 @@ threads only enqueue and wait).  Where the port differs:
   reference's admission, the clients a batch had just answered took the
   freed slots and short hints kept the collector from finishing batches,
   so closed-loop clients starved on the HepPh herd;
-* on a CUDA handle the ``lane_probe`` kernel is built at construction, so
-  the first request does not wait for ``nvcc``;
-* ``backend='sharded'`` raises ``NotImplementedError`` (ROADMAP queue 1
-  item 12).
+* on a CUDA handle (or a mesh with a CUDA device) the ``lane_probe``
+  kernel is built at construction, so the first request does not wait for
+  ``nvcc``.
 """
 from __future__ import annotations
 
@@ -218,8 +218,9 @@ class SimRankService:
     ``SimRankSession`` — its own seed namespace (``_tenant_seed(name,
     seed)``), stats and planner caches — over the ONE service-owned graph,
     so an update any tenant observes is the update every tenant observes.
-    ``backend='sharded'`` (``shards=`` / ``mesh=``) is not ported yet and
-    raises.
+    ``backend='sharded'`` builds one ``ShardedBackend`` (``shards=`` /
+    ``mesh=``, a ``ShardMesh``; its own partitioned copy of the edges) that
+    all tenant sessions share the same way.
 
     ``session_kwargs`` forwards session knobs (``c``, ``eps_a``,
     ``walk_chunk``, ``top_k``, ...) to every tenant session; ``batch_q``
@@ -250,11 +251,6 @@ class SimRankService:
             raise ValueError(
                 f"backend must be 'local' or 'sharded', got {backend!r}"
             )
-        if backend == "sharded":
-            raise NotImplementedError(
-                "backend='sharded' is not ported to repro_torch yet "
-                "(ROADMAP queue 1 item 12)"
-            )
         self.config = config or ServiceConfig()
         self.seed = int(seed)
         self._session_kwargs = dict(session_kwargs or {})
@@ -270,8 +266,32 @@ class SimRankService:
         # the default below the graph size so small graphs don't 500
         if "top_k" not in self._session_kwargs:
             self._session_kwargs["top_k"] = max(1, min(50, handle.n - 1))
-        self._handle = handle.copy()  # service-owned; caller's is safe
-        if self._handle.device.type == "cuda":
+        if backend == "local":
+            self._handle = handle.copy()  # service-owned; caller's is safe
+            self._root_backend = None
+            on_card = self._handle.device.type == "cuda"
+        else:
+            from repro_torch.api.backend import ShardedBackend
+            from repro_torch.core.params import make_params
+
+            kw = self._session_kwargs
+            params = make_params(
+                handle.n,
+                c=kw.get("c", 0.6),
+                eps_a=kw.get("eps_a", 0.1),
+                delta=kw.get("delta", 0.01),
+            )
+            # one backend (its own partitioned copy of the edges) shared by
+            # every tenant session
+            self._root_backend = ShardedBackend(
+                handle, params=params, shards=shards, mesh=mesh,
+                walk_chunk=kw.get("walk_chunk", 256),
+                use_kernel=kw.get("use_kernel", True),
+            )
+            self._handle = None
+            on_card = any(d.type == "cuda"
+                          for d in self._root_backend.mesh.devices)
+        if on_card:
             _build.load("lane_probe")  # nvcc now, not on the first request
         self.stats = ServiceStats()
         self._sessions: dict[str, SimRankSession] = {}
@@ -304,11 +324,13 @@ class SimRankService:
 
     @property
     def n(self) -> int:
-        return self._handle.n
+        be = self._root_backend
+        return be.n if be is not None else self._handle.n
 
     @property
     def version(self) -> int:
-        return self._handle.version
+        be = self._root_backend
+        return be.version if be is not None else self._handle.version
 
     @property
     def inflight(self) -> int:
@@ -326,11 +348,21 @@ class SimRankService:
         with self._sessions_lock:
             sess = self._sessions.get(tenant)
             if sess is None:
-                sess = SimRankSession(
-                    self._handle, seed=_tenant_seed(tenant, self.seed),
-                    own_graph=False, batch_q=self.config.max_batch_q,
-                    **self._session_kwargs,
-                )
+                tseed = _tenant_seed(tenant, self.seed)
+                if self._root_backend is not None:
+                    # params come from the shared backend
+                    sess = SimRankSession(
+                        self._root_backend, seed=tseed,
+                        batch_q=self.config.max_batch_q,
+                        **{k: v for k, v in self._session_kwargs.items()
+                           if k not in ("c", "eps_a", "delta")},
+                    )
+                else:
+                    sess = SimRankSession(
+                        self._handle, seed=tseed, own_graph=False,
+                        batch_q=self.config.max_batch_q,
+                        **self._session_kwargs,
+                    )
                 self._sessions[tenant] = sess
             return sess
 

@@ -44,7 +44,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.serving.dynamic_engine", "repro_torch.streams",
                 "repro_torch.streams.events", "repro_torch.streams.churn",
                 "repro_torch.streams.driver", "repro_torch.launch.serve",
-                "repro_torch.examples.quickstart"):
+                "repro_torch.examples.quickstart", "repro_torch.launch.mesh",
+                "repro_torch.graph.partition", "repro_torch.core.distributed",
+                "repro_torch.core.ring"):
         assert new in mods, new
     script = (
         "import sys\n"

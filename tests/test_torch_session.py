@@ -163,19 +163,23 @@ def test_kernel_dtype_and_switches(powerlaw_handle):
 
 
 def test_not_ported_paths_raise(powerlaw_handle):
-    from repro_torch.launch import serve
-    from repro_torch.serving import SimRankService
+    """The sharded backend is ported (tests/test_torch_sharded*.py); what
+    the production mesh alone needs still raises, naming its ROADMAP item."""
+    from repro_torch.core import distributed, ring
+    from repro_torch.launch.mesh import ShardMesh
 
-    s = TA.SimRankSession(powerlaw_handle)
+    mesh = ShardMesh(["cpu"] * 2)
+    sess = TA.SimRankSession(powerlaw_handle, backend="sharded", mesh=mesh)
+    assert sess.backend.name == "sharded" and sess.handle is None
+    assert powerlaw_handle.shard(mesh=mesh).shards == 2
     calls = [
-        lambda: TA.SimRankSession(powerlaw_handle, backend="sharded"),
-        lambda: powerlaw_handle.shard(),
-        lambda: SimRankService(powerlaw_handle, backend="sharded"),
-        lambda: serve.main(["--device", "cpu", "--backend", "sharded",
-                            "--nodes", "50", "--edges", "200"]),
+        distributed.sample_walks_sharded,
+        distributed.make_serve_step,
+        ring.make_ring_serve_step,
+        ring.ring_graph_abstract,
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12b"):
             call()
 
 

@@ -53,7 +53,13 @@ Phases (any failure exits non-zero before the result line):
    HTTP and the launcher with ``--backend sharded``; then 16 mixed epochs
    at 4 blocks (phase 5's ops) whose applied masks equal a host replay and
    whose blocks equal ``build_shard_epoch_graph`` over the host state, and
-   one overflow of the hub row regrown;
+   one overflow of the hub row regrown; then ``production_phase``: the
+   paper's production serve step (the ``probesim`` arch family, through
+   ``arch.build_with_cfg``) on its Twitter config cut to 1/32 (the cut and
+   its reason at ``PROD_CUT``), serve_batch and serve_online at 1 and 4
+   blocks and on the ring in fp32 and bf16, the walks bitwise equal to the
+   CPU sampler's, the estimates within 1e-5 of each query's largest score
+   of the plain local probe on the same walks, with ms per step, peak memory and one profiled step;
 5. dynamic graphs on the HepPh stand-in.  The correctness stream
    (capacity 2m, k_max = max in-degree + 128): 16 fused epochs
    (``SimRankSession.epoch``) of 64 edge ops (32 deletes of live edges, 32
@@ -2599,6 +2605,304 @@ def shard_phase(h, params, nodes, full_lane_ms: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The production serve step (the probesim arch family) at a Twitter-shaped cut
+# ---------------------------------------------------------------------------
+
+# The probesim CONFIG is the paper's Twitter graph (Table 3: n 41,652,230,
+# m 1,468,365,182).  One change, of scale only:
+# - n and m cut by PROD_CUT = 32 (powerlaw_graph(1,301,632, 45,886,412,
+#   seed=0); the generator's dedup keeps about 7.5 edges a node, so about
+#   9.7 M).  The reason is one card's memory for serve_batch: its step
+#   carries a [n_pad, Q * walk_chunk] = [n_pad, 2,048] fp32 frontier, 341 GB
+#   at the full n and 10.66 GB at the cut.  The step's peak, computed from
+#   the code: the frontier, the push accumulator and its weighted copy, and
+#   one 268 MB gathered slice (GATHER_BUDGET_BYTES): about 32 GB at 1
+#   block, about 35 GB at 4 blocks on one card (the all-gathered copy), so
+#   the cut is the largest power of two under 70 GB.
+# The shapes (serve_batch: 8 queries x 256 walks; serve_online: 1 x 256),
+# c, eps_a, delta and max_len (12: make_params at the cut n, as at the full
+# n) are the config's.
+PROD_CUT = 32
+PROD_N = 41_652_230 // PROD_CUT
+PROD_M = -(-1_468_365_182 // PROD_CUT)
+PROD_S = 4  # blocks of the 4-block cells, all on the one card
+PROD_REPS = 3
+PROD_PEAK_LIMIT = 70e9  # bytes: above this the cut goes to 1/64
+# ring bf16 against the fp32 step, relative to the query's largest score:
+# a bf16 frontier keeps 8 bits of mantissa (2^-8 = 3.9e-3 a rounding) and
+# the rounding is repeated over the 11 levels
+PROD_BF16_RTOL = 1e-2
+
+
+def exchange_bytes(shards: int, n_pad: int, cols: int, wire_bytes: int) -> int:
+    """Bytes a level exchanges between S blocks (computed): the all-gather
+    hands each block the S - 1 others, the ring passes each block S - 1
+    times, so both move (S - 1) x [n_pad, C] in the wire dtype.  On one
+    card the all-gather is one torch.cat and a ring pass a list rotation."""
+    return (shards - 1) * n_pad * cols * wire_bytes
+
+
+def local_estimates(g, walks, queries: int, walk_chunk: int, sqrt_c: float,
+                    cols: int = 128):
+    """The plain local check of a step's estimates: ``probe_walks_telescoped``
+    over the COO ``Graph`` on the same walks, ``cols`` walk columns at a time
+    (its COO push gathers [m, cols] messages), each query's columns summed
+    and divided by ``walk_chunk``.  Returns est [n, Q] fp32."""
+    import torch
+
+    from repro_torch.core.probe import probe_walks_telescoped
+
+    n = g.n
+    walks = walks.clamp(max=n)  # the local probe's sentinel is n
+    est = torch.zeros((n, queries), device=g.device)
+    for a in range(0, walks.shape[0], cols):
+        part = probe_walks_telescoped(g, walks[a : a + cols], sqrt_c=sqrt_c)
+        q = a // walk_chunk
+        est[:, q] += part.sum(dim=1)
+        del part
+    return est / walk_chunk
+
+
+def production_cell(name, bundle, g, queries, uniforms, seed, *, cols,
+                    exch: int, bound: float) -> tuple:
+    """One bundle's step: the checked call on ``uniforms`` (it also warms),
+    then PROD_REPS synchronized steps on the bundle's own draws (seeds);
+    logs ms per step, steps/s, queries/s, MODEL_FLOPS/s, the peak, the
+    computed exchange and the step's byte bound (``bound`` ms).  Returns
+    the checked call's (idx, vals) and ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    idx, vals = bundle.step(g, dict(queries=queries, seed=seed),
+                            uniforms=uniforms)
+    torch.cuda.synchronize()
+    times = []
+    for r in range(PROD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bundle.step(g, dict(queries=queries, seed=seed + 1 + r))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(out[0].shape == idx.shape and bool(torch.isfinite(out[1]).all()),
+                f"{name}: step {r} output")
+        del out
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = sum(times) / len(times)
+    q = queries.numel()
+    log(f"  {name}: {ms:.2f} ms/step (reps {', '.join(f'{t:.2f}' for t in times)}), "
+        f"{1e3 / ms:.3f} steps/s, {q * 1e3 / ms:.2f} queries/s, "
+        f"{bundle.model_flops() / (ms / 1e3) / 1e12:.4f} TFLOP/s of model_flops "
+        f"({bundle.model_flops():.4g} a step), peak {peak / 1e9:.2f} GB above "
+        f"the graphs, exchange {exch / 1e9:.2f} GB/level computed, "
+        f"{cols} columns; byte bound {bound:.2f} ms ({ms / bound:.1f}x)")
+    require(peak < PROD_PEAK_LIMIT, f"{name}: peak {peak / 1e9:.1f} GB")
+    require(idx.shape == (q, 50) and bool(torch.isfinite(vals).all()),
+            f"{name}: top-k {tuple(idx.shape)}")
+    return idx.cpu(), vals.cpu(), ms
+
+
+def untied_count(vals, tol: float) -> int:
+    """How many top-k places ``topk_agree`` compares ids at: those whose
+    score is further than ``2 * tol`` from both neighbours in its row."""
+    import numpy as np
+
+    v = np.asarray(vals, np.float64)
+    gaps = np.abs(np.diff(v, axis=1)) > 2 * tol
+    untied = np.ones(v.shape, bool)
+    untied[:, :-1] &= gaps
+    untied[:, 1:] &= gaps
+    return int(untied.sum())
+
+
+def production_phase(dev) -> dict:
+    """The paper's production serve step (``arch.build_with_cfg("probesim",
+    ...)``) on a Twitter-shaped graph (the probesim CONFIG cut by
+    PROD_CUT): serve_batch and serve_online, the all-gather step at 1 and
+    PROD_S blocks and the ring step at PROD_S blocks in fp32 and bf16, all
+    on the card.  Walks bitwise equal to the sampler on the CPU; relative
+    to each query's largest score, estimates within 1e-5 of the plain local probe
+    on the same walks, 4 blocks within 1e-5 of 1, the ring within 1e-5
+    (bf16 PROD_BF16_RTOL) of the all-gather step, ids equal where untied;
+    one profiled serve_batch step; the smoke bundles.  The step launches
+    none of the four kernels; returns their (zero) launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs.base import get_config, shapes_for
+    from repro_torch.core.distributed import (
+        build_sharded_graph,
+        csr_uniforms,
+        walks_from_uniforms_csr,
+    )
+    from repro_torch.core.params import make_params
+    from repro_torch.core.ring import build_ring_graph
+    from repro_torch.core.walks import make_generator
+    from repro_torch.graph import graph_from_edges, powerlaw_graph
+    from repro_torch.launch.mesh import ShardMesh
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    src, dst, n = powerlaw_graph(PROD_N, PROD_M, seed=0)
+    gen_s = time.perf_counter() - t0
+    deg = np.bincount(dst, minlength=n)
+    hub = int(deg.argmax())
+    log(f"production graph (probesim CONFIG / {PROD_CUT}): n={n} m={len(src)} "
+        f"(asked {PROD_M}), largest in-degree {int(deg[hub])} at node {hub}; "
+        f"generated in {gen_s:.1f} s on the host")
+    cfg = dataclasses.replace(get_config("probesim"), name="probesim-twitter/32",
+                              n=n, m=len(src))
+    params = make_params(n, c=cfg.c, eps_a=cfg.eps_a, delta=cfg.delta)
+    require(params.max_len == 12, f"max_len {params.max_len}")
+    sqrt_c = params.sqrt_c
+    meshes = {1: ShardMesh([dev]), PROD_S: ShardMesh([dev] * PROD_S)}
+    graphs = {}
+    for key, build in (
+            ("auto1", lambda: build_sharded_graph(src, dst, n, mesh=meshes[1],
+                                                  pad_nodes=128, pad_edges=4096)),
+            ("auto4", lambda: build_sharded_graph(src, dst, n, mesh=meshes[PROD_S],
+                                                  pad_nodes=128, pad_edges=4096)),
+            ("ring4", lambda: build_ring_graph(src, dst, n, mesh=meshes[PROD_S],
+                                               csr=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphs[key] = build()
+        torch.cuda.synchronize()
+        log(f"  graph {key}: built on the card in {time.perf_counter() - t0:.2f} s")
+    n_pad = graphs["auto1"].n_pad
+    require(n_pad == graphs["ring4"].n_pad == n == PROD_N, f"n_pad {n_pad}")
+    cpu_sg = build_sharded_graph(src, dst, n, mesh=ShardMesh(["cpu"]),
+                                 pad_nodes=128, pad_edges=4096)
+    coo = graph_from_edges(src, dst, n, device=dev)
+    cand = np.flatnonzero(deg >= 1)
+    picked = np.random.default_rng(0).choice(cand, 8, replace=False)
+    variants = {"auto1": (cfg, 1), "auto4": (cfg, PROD_S),
+                "ring4 fp32": (dataclasses.replace(cfg, push_mode="ring"), PROD_S),
+                "ring4 bf16": (dataclasses.replace(cfg, push_mode="ring",
+                                                   frontier_dtype="bfloat16"),
+                               PROD_S)}
+    rows = {}
+    for si, shape in enumerate(shapes_for("probesim")):
+        q, b = shape.dims["queries"], shape.dims["walk_chunk"]
+        queries = torch.tensor(picked[:q], dtype=torch.int32, device=dev)
+        cont, pick = csr_uniforms(make_generator(100 + si, dev), walks=q * b,
+                                  max_len=params.max_len, sqrt_c=sqrt_c,
+                                  device=dev)
+        walks = walks_from_uniforms_csr(graphs["auto1"], queries, cont, pick)
+        ref_walks = walks_from_uniforms_csr(cpu_sg, queries.cpu(), cont.cpu(),
+                                            pick.cpu())
+        require(torch.equal(walks.cpu(), ref_walks),
+                f"{shape.name}: card walks differ from the CPU's")
+        for key in ("auto4", "ring4"):
+            require(torch.equal(walks_from_uniforms_csr(graphs[key], queries,
+                                                        cont, pick), walks),
+                    f"{shape.name}: {key} walks differ")
+        sample_ms = {}
+        for key in ("auto1", "auto4"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            walks_from_uniforms_csr(graphs[key], queries, cont, pick)
+            torch.cuda.synchronize()
+            sample_ms[key] = (time.perf_counter() - t0) * 1e3
+        live = int((walks[:, 1:] < n).sum())
+        log(f"{shape.name} (Q {q} x {b} walks, {params.max_len - 1} levels): "
+            f"walks equal to the CPU sampler's bit for bit ({live} live steps); "
+            f"the CSR sampler {sample_ms['auto1']:.2f} ms at 1 block, "
+            f"{sample_ms['auto4']:.2f} ms at {PROD_S} (warm, synchronized)")
+        out = {}
+        for name, (vcfg, s) in variants.items():
+            bundle = arch.build_with_cfg("probesim", vcfg, shape, mesh=meshes[s])
+            g = graphs["ring4" if name.startswith("ring") else
+                       ("auto4" if s > 1 else "auto1")]
+            wire = 2 if vcfg.frontier_dtype == "bfloat16" else 4
+            # least bytes a step moves: each level reads the frontier and
+            # writes the next once, and reads the edges (src, dst) once
+            level = 2 * n_pad * q * b * wire + len(src) * 8
+            out[name] = production_cell(
+                f"{shape.name} {name}", bundle, g, queries, (cont, pick),
+                1000 * si, cols=q * b,
+                exch=exchange_bytes(s, n_pad, q * b, wire),
+                bound=(params.max_len - 1) * level / PEAK_BYTES_PER_S * 1e3)
+            if name == "auto1" and si == 0:
+                profile("serve_batch step (auto, 1 block)",
+                        lambda: bundle.step(g, dict(queries=queries, seed=7)))
+            del bundle
+        # the plain local check on the same walks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = local_estimates(coo, walks, q, b, sqrt_c)
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        idx1, vals1, _ = out["auto1"]
+        # the estimates are small on this graph (the hub takes most walks)
+        # and differ by orders of magnitude between queries, so every limit
+        # is relative to the query's largest score: fp32 at FP32_RTOL of
+        # it, bf16 at PROD_BF16_RTOL of it; the ids are then compared
+        # wherever two scores are further apart than twice the limit
+        scale = vals1.abs().amax(dim=1).double()  # [Q]
+        require(bool((scale > 0).all()), f"{shape.name}: a query scored 0")
+        got = est.cpu()[idx1.long(), torch.arange(q)[:, None]]
+        lerr = float(((got - vals1).abs().amax(dim=1) / scale).max())
+        require(lerr <= FP32_RTOL, f"{shape.name}: step vs local probe {lerr} "
+                f"of the query's largest score")
+        est[queries.long(), torch.arange(q, device=dev)] = float("-inf")
+        lvals, lidx = torch.topk(est.T, 50)
+
+        def rel_agree(idx, vals, ref_idx, ref_vals, rtol):
+            """Largest top-k difference over the queries, relative to each
+            query's largest score (``topk_agree`` at rtol of it)."""
+            return max(topk_agree(_TopK(idx[j].numpy(), vals[j].numpy()),
+                                  _TopK(ref_idx[j].numpy(), ref_vals[j].numpy()),
+                                  rtol * float(scale[j])) / float(scale[j])
+                       for j in range(q))
+
+        lagree = rel_agree(idx1, vals1, lidx.cpu(), lvals.cpu(), FP32_RTOL)
+        errs = {}
+        for name, rtol in (("auto4", FP32_RTOL), ("ring4 fp32", FP32_RTOL),
+                           ("ring4 bf16", PROD_BF16_RTOL)):
+            idx, vals, _ = out[name]
+            errs[name] = rel_agree(idx, vals, idx1, vals1, rtol)
+        untied = {k: sum(untied_count(vals1[j : j + 1], r * float(scale[j]))
+                         for j in range(q))
+                  for k, r in (("fp32", FP32_RTOL), ("bf16", PROD_BF16_RTOL))}
+        log(f"  {shape.name}, relative to each query's largest score "
+            f"({float(scale.min()):.4e} to {float(scale.max()):.4e}): step vs "
+            f"plain local probe (probe_walks_telescoped over the COO graph, "
+            f"{check_s:.2f} s) {lerr:.3e} at the top-k, top-k {lagree:.3e}; "
+            f"ids compared at {untied['fp32']} (fp32) and {untied['bf16']} "
+            f"(bf16) of {vals1.numel()} places; against auto1: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; top-1 of query 0: node {int(idx1[0, 0])} "
+            f"{float(vals1[0, 0]):.4e}")
+        rows[shape.name] = {k: v[2] for k, v in out.items()}
+        del est, walks, out
+        torch.cuda.empty_cache()
+    # the smoke bundles through build(), init and step on the card
+    for shape in ("serve_batch", "serve_online"):
+        bundle = arch.build("probesim", shape, smoke=True, device="cuda")
+        (g,) = bundle.init()
+        idx, vals = bundle.step(g, dict(queries=torch.tensor([1, 2]), seed=0))
+        require(idx.device.type == dev.type and idx.shape == (2, 50)
+                and bool(torch.isfinite(vals).all()), f"smoke {shape}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    require(not any(launches.values()),
+            f"the production step launched a kernel: {launches}")
+    del graphs, coo, cpu_sg
+    torch.cuda.empty_cache()
+    log(f"production phase: {time.perf_counter() - t_phase:.1f} s "
+        f"(ms/step {rows}); launches {launches}; card: {card()}")
+    return launches
+
+
 STREAM_N = 34_546
 STREAM_RATE = 20_000 * STREAM_N // 2_000
 STREAM_HORIZON = 1.0
@@ -3032,6 +3336,7 @@ def main() -> int:
     shard_launches = shard_phase(h, params, nodes, rows["lane_probe"]["ms"])
     del h
     torch.cuda.empty_cache()
+    prod_launches = production_phase(dev)
     dyn_launches = dynamic_phase(dev)
     for k, v in dynamic_traffic(dev).items():
         dyn_launches[k] += v
@@ -3043,7 +3348,7 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = (launches[name] + acc_launches[name]
                            + svc_launches[name] + shard_launches[name]
-                           + dyn_launches[name]
+                           + prod_launches[name] + dyn_launches[name]
                            + stream_launches[name] + lm_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,11 +1,12 @@
-"""Config dataclasses and registry of the LM family (copy of ``repro.configs.base``).
+"""Config dataclasses and registry of the LM and ProbeSim families (copy of
+``repro.configs.base``).
 
 Each ported architecture registers one module in this package exposing
 ``CONFIG`` (full scale, the published numbers) and ``SMOKE`` (reduced,
 CPU-runnable).  The dataclasses are the reference's, field for field, so a
-config compares equal across the two packages.  Only the LM family is
-ported; the GNN and recsys configs wait for their slices (ROADMAP queue 1
-item 14), the ProbeSim family for the production-mesh step (item 12b).
+config compares equal across the two packages.  The LM and ProbeSim
+families are ported; the GNN and recsys configs wait for their slices
+(ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -108,6 +109,22 @@ class TransformerConfig:
 
 
 @dataclass(frozen=True)
+class ProbeSimConfig:
+    """The paper's own serving config (``configs/probesim.py``)."""
+
+    name: str
+    n: int
+    m: int
+    c: float = 0.6
+    eps_a: float = 0.1
+    delta: float = 0.01
+    k_max_ell: int = 64  # ELL cap for walk sampling
+    push_mode: str = "auto"  # "auto" (all-gather push) | "ring"
+    frontier_dtype: str = "float32"  # "bfloat16" halves exchange volume
+    family: str = "probesim"
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
     kind: str  # "train" | "prefill" | "decode"
@@ -121,26 +138,27 @@ LM_SHAPES = [
     ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
 ]
 
+PROBESIM_SHAPES = [
+    ShapeSpec("serve_batch", "simrank_serve", dict(queries=8, walk_chunk=256)),
+    ShapeSpec("serve_online", "simrank_serve", dict(queries=1, walk_chunk=256)),
+]
+
 _MODULE_OF = {
     "llama3.2-1b": "llama3_2_1b",
+    "probesim": "probesim",
 }
 
 NOT_PORTED = (
     "deepseek-v2-lite-16b", "qwen2-moe-a2.7b", "llama3-405b", "yi-34b",
-    "gin-tu", "gcn-cora", "gatedgcn", "nequip", "wide-deep", "probesim",
-    "gat-bonus",
+    "gin-tu", "gcn-cora", "gatedgcn", "nequip", "wide-deep", "gat-bonus",
 )
 
 
 def get_config(arch: str, smoke: bool = False):
     if arch not in _MODULE_OF:
         if arch in NOT_PORTED:
-            # the probesim family (the production-mesh serve step) belongs
-            # with the rest of the sharded path's production-mesh pieces
-            item = "12b" if arch == "probesim" else "14"
             raise NotImplementedError(
-                f"config {arch!r} is not ported yet (ROADMAP queue 1 item "
-                f"{item})"
+                f"config {arch!r} is not ported yet (ROADMAP queue 1 item 14)"
             )
         raise KeyError(arch)
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch]}")
@@ -151,6 +169,8 @@ def shapes_for(arch: str) -> list[ShapeSpec]:
     cfg = get_config(arch)
     if cfg.family == "lm":
         return list(LM_SHAPES)
+    if cfg.family == "probesim":
+        return list(PROBESIM_SHAPES)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 14)"
     )

@@ -27,13 +27,25 @@ the host once per level, as the local serve does.
   gathered frontier (``use_kernel``), or the plain level with a COO
   ``index_add_`` push over the shard's source-sorted bucket.
 * ``probe_walks_sharded`` — the per-level telescoped probe over a walk
-  matrix (the mesh epoch's probe with the kernel off).
+  matrix (the mesh epoch's probe with the kernel off, and the production
+  step's).
 
-``sample_walks_sharded`` and ``make_serve_step`` (the CSR sampler and the
-production-mesh serve step) are not ported (ROADMAP queue 1 item 12b).
+The production serve step (the paper's ``probesim`` arch family):
+
+* ``ShardedGraph`` / ``build_sharded_graph`` — the production layout: per
+  row block its ``in_deg`` and ``indptr`` rows, its in-neighbour lists and
+  its destination-partitioned COO bucket sorted by source;
+* ``walks_from_uniforms_csr`` / ``sample_walks_sharded`` — the CSR walk
+  sampler, each step served by the block that owns the walk's node;
+* ``make_serve_step`` — sample, probe (``probe_walks_sharded``), mean over
+  the walk chunk, exclude the query node, top-k.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.core.multisource import (
@@ -44,23 +56,244 @@ from repro_torch.core.multisource import (
     lane_refill,
     lane_thresholds,
 )
+from repro_torch.graph.partition import pad_to_multiple, partition_edges_by_dst
 from repro_torch.graph.structs import GATHER_BUDGET_BYTES
 
 Tensor = torch.Tensor
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item 12b)"
+def row_block(x: Tensor, s: int, rows: int) -> Tensor:
+    """Shard s's rows of a per-shard node vector, which is either its row
+    block already or a full ``[n_pad]`` replica."""
+    return x if x.shape[0] == rows else x[s * rows : (s + 1) * rows]
+
+
+# ---------------------------------------------------------------------------
+# The production layout: CSR row blocks sharing their COO buckets
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedGraph:
+    """The production serve step's graph over a ``ShardMesh`` (port of
+    ``repro.core.distributed.ShardedGraph``).
+
+    Every list holds one tensor per row block, on that block's device;
+    block s owns rows ``[s * rows, (s + 1) * rows)``:
+
+    * ``indptr`` int32 ``[rows]`` — the global in-CSR start offset of each
+      of its rows (the reference's ``indptr``, cut into blocks);
+    * ``in_deg`` int32 ``[rows]``;
+    * ``indices`` int32 ``[E]`` — the block's in-neighbour lists (its CSR
+      values: the reference's ``indices[base[s] : base[s] + counts[s]]``),
+      edges sorted stably by destination, padded with ``n_pad``; the
+      sampler reads them;
+    * ``src_sh`` / ``dst_sh`` int32 ``[E]`` — the block's
+      destination-partitioned COO bucket (global ids, padded with
+      ``n_pad``), which the push reads.  It holds the same edges as
+      ``indices`` sorted by (source, destination): frontier rows are
+      gathered in address order, and a hub's in-edges are spread over the
+      bucket instead of adjacent, so ``index_add_``'s atomics do not queue
+      on one row.  The reference likewise keeps its COO ``src`` / ``dst``
+      apart from ``indices``;
+    * ``counts`` / ``base`` — host ints: the block's live edges and the
+      global CSR offset of its first edge.
+
+    ``n_pad`` is the reference's (``pad_to_multiple(n, pad_nodes)``) and is
+    also the walks' sentinel; ``m_pad`` is the reference's padded edge count
+    (the port's blocks are padded to the largest block instead).  The
+    sampler reads ``indptr`` / ``in_deg`` / ``indices``; the push
+    (``probe_walks_sharded``) reads ``src_sh`` / ``dst_sh`` / ``counts`` /
+    ``in_deg``.
+    """
+
+    indptr: list
+    in_deg: list
+    indices: list
+    src_sh: list
+    dst_sh: list
+    counts: list
+    base: list
+    n: int
+    n_pad: int
+    m: int
+    m_pad: int
+    mesh: object
+
+    @property
+    def shards(self) -> int:
+        return self.mesh.shards
+
+    @property
+    def rows(self) -> int:
+        return self.n_pad // self.mesh.shards
+
+
+def csr_blocks(src, dst, n: int, n_pad: int, mesh) -> dict:
+    """The in-CSR of ``(src, dst)`` cut into ``mesh``'s row blocks of
+    ``n_pad / S`` rows, on the host: ``indptr`` / ``in_deg`` [n_pad] (the
+    reference's, global), ``part`` (``partition_edges_by_dst`` of the edges
+    sorted stably by destination: each bucket's sources are its rows' CSR
+    values) and ``base`` (each block's first CSR offset)."""
+    src = np.asarray(src, np.int32).reshape(-1)
+    dst = np.asarray(dst, np.int32).reshape(-1)
+    shards = mesh.shards
+    if n_pad % shards:
+        raise ValueError(f"n_pad {n_pad} is not divisible by {shards} shards")
+    order = np.argsort(dst, kind="stable")
+    cnt = np.bincount(dst, minlength=n)
+    in_deg = np.zeros(n_pad, np.int32)
+    in_deg[:n] = cnt[:n]
+    indptr = np.zeros(n_pad, np.int32)
+    np.cumsum(cnt[: n - 1], out=indptr[1:n])
+    part = partition_edges_by_dst(src[order], dst[order], n_pad, shards)
+    base = np.concatenate([[0], np.cumsum(part["counts"])[:-1]])
+    return dict(indptr=indptr, in_deg=in_deg, part=part,
+                base=[int(b) for b in base])
+
+
+def build_sharded_graph(
+    src: np.ndarray, dst: np.ndarray, n: int, *, mesh, pad_nodes: int = 1,
+    pad_edges: int = 1,
+) -> ShardedGraph:
+    """Host-side constructor: place the CSR row blocks and their buckets on
+    ``mesh`` (``n_pad = pad_to_multiple(n, pad_nodes)`` must be divisible by
+    the shard count)."""
+    n_pad = pad_to_multiple(n, pad_nodes)
+    m = len(src)
+    csr = csr_blocks(src, dst, n, n_pad, mesh)
+    part, rows = csr["part"], n_pad // mesh.shards
+    blocks = dict(indptr=[], in_deg=[], indices=[], dst=[])
+    for s, d in enumerate(mesh.devices):
+        live = np.arange(part["src_sh"].shape[1]) < part["counts"][s]
+        gdst = np.where(live, part["dst_sh"][s] + s * rows, n_pad)
+        for k, a in (("indptr", csr["indptr"][s * rows : (s + 1) * rows]),
+                     ("in_deg", csr["in_deg"][s * rows : (s + 1) * rows]),
+                     ("indices", part["src_sh"][s]), ("dst", gdst)):
+            blocks[k].append(torch.from_numpy(
+                np.ascontiguousarray(a, np.int32)).to(d))
+    # the stable sort keeps each source's edges in destination order
+    src_sh, dst_sh = source_sorted(blocks["indices"], blocks.pop("dst"))
+    return ShardedGraph(
+        **blocks, src_sh=src_sh, dst_sh=dst_sh, counts=[int(c) for c in part["counts"]], base=csr["base"],
+        n=int(n), n_pad=int(n_pad), m=int(m),
+        m_pad=pad_to_multiple(m, pad_edges), mesh=mesh,
     )
 
 
-def sample_walks_sharded(*args, **kwargs):
-    _not_ported("core.distributed.sample_walks_sharded (the CSR sampler)")
+def sharded_graph_abstract(n: int, m: int, shards: int, *, pad_nodes: int,
+                           pad_edges: int) -> ShardedGraph:
+    """The full-scale graph as ``meta`` tensors (shapes and dtypes only,
+    nothing allocated): concatenated over the blocks they are the
+    reference's ``indptr`` / ``in_deg`` [n_pad] and ``indices`` / ``src`` /
+    ``dst`` [m_pad], the edges split evenly over the blocks.  ``counts``
+    and ``base`` are unknown: None."""
+    from repro_torch.launch.mesh import ShardMesh
+
+    n_pad = pad_to_multiple(n, pad_nodes)
+    m_pad = pad_to_multiple(m, pad_edges)
+    if n_pad % shards or m_pad % shards:
+        raise ValueError(f"n_pad {n_pad} / m_pad {m_pad} not divisible by "
+                         f"{shards} shards")
+
+    def blocks(size):
+        return [torch.empty((size,), dtype=torch.int32, device="meta")
+                for _ in range(shards)]
+
+    return ShardedGraph(
+        indptr=blocks(n_pad // shards), in_deg=blocks(n_pad // shards),
+        indices=blocks(m_pad // shards), src_sh=blocks(m_pad // shards),
+        dst_sh=blocks(m_pad // shards),
+        counts=None, base=None, n=int(n), n_pad=n_pad, m=int(m), m_pad=m_pad,
+        mesh=ShardMesh(["meta"] * shards),
+    )
 
 
-def make_serve_step(*args, **kwargs):
-    _not_ported("core.distributed.make_serve_step (the production-mesh step)")
+# ---------------------------------------------------------------------------
+# The CSR walk sampler
+# ---------------------------------------------------------------------------
+
+
+def csr_uniforms(gen: torch.Generator, *, walks: int, max_len: int,
+                 sqrt_c: float, device) -> tuple[Tensor, Tensor]:
+    """The production sampler's draws, in the reference's shapes and order:
+    ``cont`` (bool, continue w.p. sqrt(c)) then ``pick`` (fp32), each
+    ``[max_len - 1, walks]``, from ``gen`` on ``device``."""
+    shape = (max_len - 1, walks)
+    cont = torch.rand(shape, generator=gen, device=device) < sqrt_c
+    pick = torch.rand(shape, generator=gen, device=device)
+    return cont, pick
+
+
+def walks_from_uniforms_csr(g, queries, cont: Tensor, pick: Tensor) -> Tensor:
+    """Walks int32 [Q * B, max_len] (sentinel ``n_pad``) from pre-drawn
+    ``cont`` / ``pick`` [max_len - 1, Q * B]; walk ``q * B + j`` starts at
+    ``queries[q]``.
+
+    ``g`` carries ``mesh``, ``rows``, ``n_pad`` and per block ``indptr``,
+    ``in_deg`` (its rows or a full replica), ``indices`` and ``base``
+    (``ShardedGraph``, or a ``RingGraph`` with its CSR view).  Each step
+    sends the walks' nodes to every block; the block that owns a node
+    reads its degree and picks in-neighbour ``floor(pick * deg)`` (fp32,
+    clipped to ``[0, max(deg - 1, 0)]``) from its CSR values; dead walks
+    stay at ``n_pad``.  Given the reference's uniforms these are the
+    reference's walks, bit for bit.
+    """
+    mesh, rows, n_pad = g.mesh, g.rows, g.n_pad
+    dev = mesh.home
+    cont = cont.to(dev)
+    picks = mesh.broadcast(pick.to(dev, torch.float32))
+    q = torch.as_tensor(queries, dtype=torch.int32).reshape(-1).to(dev)
+    cur = q.repeat_interleave(cont.shape[1] // q.numel())
+    alive = torch.ones_like(cur, dtype=torch.bool)
+    sentinel = torch.full_like(cur, n_pad)
+    cols = [cur]
+    for t in range(cont.shape[0]):
+        cc = cur.clamp(0, n_pad - 1)
+        owner = cc // rows
+        deg, nxt = torch.zeros_like(cur), sentinel
+        for s, c_s in enumerate(mesh.broadcast(cc)):
+            lr = (c_s - s * rows).clamp(0, rows - 1).long()
+            d_s = row_block(g.in_deg[s], s, rows)[lr]
+            k = torch.floor(picks[s][t] * d_s.to(torch.float32)).to(torch.int32)
+            k = torch.minimum(k.clamp(min=0), (d_s - 1).clamp(min=0))
+            vals = g.indices[s]
+            at = (g.indptr[s][lr] - g.base[s] + k).clamp(0, vals.shape[0] - 1)
+            mine = owner == s
+            deg = torch.where(mine, d_s.to(dev), deg)
+            nxt = torch.where(mine, vals[at.long()].to(dev), nxt)
+        alive = alive & cont[t] & (deg > 0)
+        cur = torch.where(alive, nxt, sentinel)
+        cols.append(cur)
+    return torch.stack(cols, dim=1)
+
+
+def sample_walks_sharded(
+    gen: torch.Generator,
+    g,
+    queries,
+    *,
+    walks_per_query: int,
+    max_len: int,
+    sqrt_c: float,
+) -> Tensor:
+    """``walks_per_query`` sqrt(c)-walks from each query node over the CSR
+    blocks; returns int32 [Q * B, max_len] (sentinel ``n_pad``).  The
+    uniforms come from ``gen``, on the mesh's home device."""
+    q = torch.as_tensor(queries).numel()
+    cont, pick = csr_uniforms(gen, walks=q * walks_per_query, max_len=max_len,
+                              sqrt_c=sqrt_c, device=g.mesh.home)
+    return walks_from_uniforms_csr(g, queries, cont, pick)
+
+
+def step_walks(g, queries, gen, uniforms, *, walk_chunk: int, max_len: int,
+               sqrt_c: float) -> Tensor:
+    """A serve step's walks: drawn from ``gen``, or made from the given
+    ``uniforms = (cont, pick)`` (the seam the tests feed)."""
+    if uniforms is not None:
+        return walks_from_uniforms_csr(g, queries, *uniforms)
+    return sample_walks_sharded(gen, g, queries, walks_per_query=walk_chunk,
+                                max_len=max_len, sqrt_c=sqrt_c)
 
 
 # ---------------------------------------------------------------------------
@@ -327,13 +560,35 @@ def probe_lanes_sharded(
 
 def push_weights(st, sqrt_c: float) -> list[Tensor]:
     """``sqrt(c) / in_deg`` of each shard's rows (0 where the degree is 0),
-    from the shard's own ``in_deg`` replica."""
+    from the shard's own ``in_deg`` replica or row block."""
     out = []
     for s, deg in enumerate(st.in_deg):
-        d = deg[s * st.rows : (s + 1) * st.rows].to(torch.float32)
+        d = row_block(deg, s, st.rows).to(torch.float32)
         out.append(torch.where(d > 0, sqrt_c / d.clamp(min=1.0),
                                torch.zeros_like(d)))
     return out
+
+
+def walk_rows(col: Tensor, s: int, rows: int) -> tuple[Tensor, Tensor]:
+    """Block s's local rows of the walk nodes ``col`` [C] (clamped into the
+    block) and which of them lie in the block (sentinels lie in none)."""
+    r = col.long() - s * rows
+    return r.clamp(0, rows - 1), (r >= 0) & (r < rows)
+
+
+def inject(sc: Tensor, col: Tensor, s: int, rows: int, cols: Tensor) -> None:
+    """``sc[v, j] += 1`` in place where column j's walk node v lies in block
+    s: the row-id compare ``sc + (rid == col)`` written as one add per
+    column, so no ``[rows, C]`` temporary is made."""
+    r, here = walk_rows(col, s, rows)
+    sc.index_put_((r, cols), here.to(sc.dtype), accumulate=True)
+
+
+def exclude(sc: Tensor, col: Tensor, s: int, rows: int, cols: Tensor) -> None:
+    """``sc[v, j] = 0`` in place where column j's walk node v lies in block
+    s (the compare ``where(rid == col, 0, sc)``, one write per column)."""
+    r, here = walk_rows(col, s, rows)
+    sc.index_put_((r, cols), torch.where(here, 0.0, sc[r, cols]).to(sc.dtype))
 
 
 def probe_walks_sharded(
@@ -348,8 +603,9 @@ def probe_walks_sharded(
     """Telescoped probe of every walk column at once over the sharded COO
     buckets; returns scores [n_pad, C] on shard 0's device.
 
-    Injection and exclusion are row-id compares against each column's walk
-    node; each level all-gathers the frontier and pushes every bucket in
+    Injection and exclusion touch one entry per column (``inject`` /
+    ``exclude``: the reference's row-id compares, entry for entry); each
+    level all-gathers the frontier and pushes every bucket in
     ``edge_chunks`` slices (``coo_push``).  ``live`` (host ints, one per
     shard) bounds each bucket's push; by default it is read from
     ``st.counts`` once.
@@ -357,25 +613,67 @@ def probe_walks_sharded(
     mesh = st.mesh
     rows = st.rows
     c, length = walks.shape
-    rids = row_ids(mesh, rows)
     cols = mesh.broadcast(walks)
+    ar = [torch.arange(c, device=d) for d in mesh.devices]
     w = push_weights(st, sqrt_c)
     if live is None:
         live = [int(x) for x in st.counts]
     scores = [torch.zeros((rows, c), device=d) for d in mesh.devices]
     for p in range(length, 1, -1):
-        for s in range(mesh.shards):
-            sc = scores[s] + (rids[s] == cols[s][:, p - 1][None, :]).float()
+        for s, sc in enumerate(scores):
+            inject(sc, cols[s][:, p - 1], s, rows, ar[s])
             if eps_p > 0.0:
-                thresh = eps_p / (sqrt_c ** (p - 1))
-                sc = torch.where(sc > thresh, sc, torch.zeros_like(sc))
-            scores[s] = sc
+                sc.masked_fill_(sc <= eps_p / (sqrt_c ** (p - 1)), 0.0)
         fulls = mesh.all_gather_rows(scores) if st.shards > 1 else scores
         scores = coo_push(fulls, st.src_sh, st.dst_sh, live, w, rows=rows,
                           n_pad=st.n_pad, edge_chunks=edge_chunks)
-        scores = [
-            torch.where(rids[s] == cols[s][:, p - 2][None, :],
-                        torch.zeros_like(sc), sc)
-            for s, sc in enumerate(scores)
-        ]
+        for s, sc in enumerate(scores):
+            exclude(sc, cols[s][:, p - 2], s, rows, ar[s])
     return mesh.gather_rows(scores)
+
+
+# ---------------------------------------------------------------------------
+# The production serve step
+# ---------------------------------------------------------------------------
+
+
+def serve_topk(scores: Tensor, query_nodes, *, queries: int, walk_chunk: int,
+               top_k: int) -> tuple[Tensor, Tensor]:
+    """The steps' epilogue: each query's estimate, the mean of its
+    ``walk_chunk`` columns of ``scores`` [n_pad, Q * B] (taken in fp32),
+    with its own node set to ``-inf`` by a row compare; returns
+    ``(idx int32 [Q, k], vals fp32 [Q, k])``."""
+    n_pad = scores.shape[0]
+    est = scores.reshape(n_pad, queries, walk_chunk).float().sum(-1) / walk_chunk
+    q = torch.as_tensor(query_nodes).reshape(-1).to(est.device, torch.int64)
+    rows = torch.arange(n_pad, device=est.device)[:, None]
+    est = est.masked_fill(rows == q[None, :], float("-inf"))
+    vals, idx = torch.topk(est.T, top_k)
+    return idx.to(torch.int32), vals
+
+
+def make_serve_step(cfg, *, queries: int, walk_chunk: int, max_len: int,
+                    top_k: int = 50, edge_chunks: int = 8):
+    """The ProbeSim serving step of the production layout (port of
+    ``repro.core.distributed.make_serve_step``).
+
+    ``step(sg, query_nodes [Q], gen, *, uniforms=None) -> (topk_idx [Q, k]
+    int32, topk_val [Q, k] fp32)`` on the mesh's home device.  One step
+    samples ``walk_chunk`` walks per query from ``gen`` (or takes the draws
+    ``uniforms = (cont, pick)``, each ``[max_len - 1, Q * walk_chunk]``),
+    probes them over ``sg``'s buckets in ``edge_chunks`` slices a level,
+    and ranks the mean over the chunk; a serving engine loops steps and
+    folds their means.
+    """
+    sqrt_c = math.sqrt(cfg.c)
+
+    def serve_step(sg: ShardedGraph, query_nodes, gen=None, *, uniforms=None):
+        walks = step_walks(sg, query_nodes, gen, uniforms,
+                           walk_chunk=walk_chunk, max_len=max_len,
+                           sqrt_c=sqrt_c)
+        scores = probe_walks_sharded(sg, walks, sqrt_c=sqrt_c,
+                                     edge_chunks=edge_chunks, live=sg.counts)
+        return serve_topk(scores, query_nodes, queries=queries,
+                          walk_chunk=walk_chunk, top_k=top_k)
+
+    return serve_step

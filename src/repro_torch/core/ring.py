@@ -17,23 +17,33 @@ and ``probe_walks_ring`` can carry its frontier in bf16.
 "neighbor" is itself (``K = 1``, weight 1, ``tab0 = 0``: the table is the
 resident block), and the exclusion follows the push.
 
-``make_ring_serve_step`` and ``ring_graph_abstract`` (the production-mesh
-step and its dry-run shapes) are not ported (ROADMAP queue 1 item 12b).
+``make_ring_serve_step`` is the production serve step with the ring push:
+it samples walks through the CSR sampler of ``core/distributed.py`` over
+the graph's CSR view (built once, by ``build_ring_graph(..., csr=True)``)
+and probes them with ``probe_walks_ring``.  ``ring_graph_abstract`` gives the full-scale
+graph's shapes as ``meta`` tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core.distributed import (
+    csr_blocks,
+    exclude,
+    inject,
     lane_level,
     lane_probe_block,
     push_weights,
     row_ids,
+    serve_topk,
+    step_walks,
 )
 from repro_torch.graph.partition import pad_to_multiple, partition_edges_2d
+from repro_torch.graph.structs import GATHER_BUDGET_BYTES
 
 Tensor = torch.Tensor
 
@@ -48,6 +58,15 @@ class RingGraph:
     first and sentinel ``rows`` after them; ``counts[s][b]`` is that
     bucket's live edge count (host ints).  ``in_deg`` is an ``[n_pad]``
     replica per shard.
+
+    The CSR view the production step samples walks from (the reference's
+    ``indptr`` / ``indices``) is cut into the same row blocks:
+    ``indptr[s]`` int32 ``[rows]`` (global offsets), ``indices[s]`` (the
+    block's in-neighbour lists, sorted stably by destination, padded with
+    ``n_pad``) and ``base[s]`` (its first offset).
+    ``build_ring_graph(..., csr=True)`` builds it from the edge list; other
+    graphs (the sharded backend's, ``ring_graph_from_parts``'s) have none:
+    their probes read only the buckets.
     """
 
     src_sh: list
@@ -58,6 +77,10 @@ class RingGraph:
     n_pad: int
     shards: int
     mesh: object
+    indptr: list | None = None
+    indices: list | None = None
+    base: list | None = None
+    m: int | None = None
 
     @property
     def rows(self) -> int:
@@ -94,28 +117,81 @@ def ring_graph_from_parts(src_sh, dst_sh, in_deg, n: int, mesh) -> RingGraph:
     )
 
 
-def build_ring_graph(src: np.ndarray, dst: np.ndarray, n: int, *,
-                     mesh) -> RingGraph:
-    """The ring layout of a host edge list over ``mesh``'s S shards."""
+def build_ring_graph(src: np.ndarray, dst: np.ndarray, n: int, *, mesh,
+                     csr: bool = False) -> RingGraph:
+    """The ring layout of a host edge list over ``mesh``'s S shards; with
+    ``csr`` also its CSR view, which only the production step reads (it
+    costs a stable sort of the edges on the host and a second per-block
+    edge array on the devices)."""
     part = partition_edges_2d(src, dst, n, mesh.shards)
-    in_deg = np.zeros(part["n_pad"], np.int32)
-    in_deg[:n] = np.bincount(np.asarray(dst), minlength=n)[:n]
-    return ring_graph_from_parts(part["src_sh"], part["dst_sh"], in_deg, n,
-                                 mesh)
+    if not csr:
+        in_deg = np.zeros(part["n_pad"], np.int32)
+        in_deg[:n] = np.bincount(np.asarray(dst), minlength=n)[:n]
+        return ring_graph_from_parts(part["src_sh"], part["dst_sh"], in_deg,
+                                     n, mesh)
+    view = csr_blocks(src, dst, n, part["n_pad"], mesh)
+    rg = ring_graph_from_parts(part["src_sh"], part["dst_sh"],
+                               view["in_deg"], n, mesh)
+    rows = rg.rows
+    rg.indptr = [torch.from_numpy(view["indptr"][s * rows : (s + 1) * rows]
+                                  .copy()).to(d)
+                 for s, d in enumerate(mesh.devices)]
+    rg.indices = [torch.from_numpy(view["part"]["src_sh"][s].copy()).to(d)
+                  for s, d in enumerate(mesh.devices)]
+    rg.base = view["base"]
+    rg.m = len(src)
+    return rg
 
 
-def ring_graph_abstract(*args, **kwargs):
-    raise NotImplementedError(
-        "core.ring.ring_graph_abstract (dry-run shapes) is not ported to "
-        "repro_torch yet (ROADMAP queue 1 item 12b)"
+def ring_graph_abstract(n: int, m: int, shards: int, e_max: int) -> RingGraph:
+    """The full-scale ring graph as ``meta`` tensors (shapes and dtypes
+    only, nothing allocated): stacked or concatenated over the shards they
+    are the reference's ``src_sh`` / ``dst_sh`` [S, S, e_max], ``in_deg`` /
+    ``indptr`` [n_pad] and ``indices`` [m_pad] (``m_pad`` a multiple of
+    4,096, split evenly over the blocks).  ``counts`` is unknown: None."""
+    from repro_torch.launch.mesh import ShardMesh
+
+    mesh = ShardMesh(["meta"] * shards)
+    n_pad = pad_to_multiple(n, shards)
+    rows = n_pad // shards
+    m_pad = -(-m // 4096) * 4096
+
+    def blocks(*shape):
+        return [torch.empty(shape, dtype=torch.int32, device="meta")
+                for _ in range(shards)]
+
+    return RingGraph(
+        src_sh=blocks(shards, e_max), dst_sh=blocks(shards, e_max),
+        counts=None, in_deg=blocks(n_pad), n=int(n), n_pad=n_pad,
+        shards=shards, mesh=mesh, indptr=blocks(rows),
+        indices=blocks(m_pad // shards), base=None, m=int(m),
     )
 
 
-def make_ring_serve_step(*args, **kwargs):
-    raise NotImplementedError(
-        "core.ring.make_ring_serve_step (the production-mesh step) is not "
-        "ported to repro_torch yet (ROADMAP queue 1 item 12b)"
-    )
+def make_ring_serve_step(cfg, *, queries: int, walk_chunk: int, max_len: int,
+                         top_k: int = 50, frontier_dtype=torch.float32):
+    """The production serve step with the ring push (port of
+    ``repro.core.ring.make_ring_serve_step``): ``step(rg, query_nodes, gen,
+    *, uniforms=None) -> (idx int32 [Q, k], vals fp32 [Q, k])``, as
+    ``core.distributed.make_serve_step``, the walks drawn over ``rg``'s CSR
+    view and probed by ``probe_walks_ring`` in ``frontier_dtype``.  The
+    mean is taken in fp32 (the reference's sum of a bf16 frontier is
+    rounded to bf16)."""
+    sqrt_c = math.sqrt(cfg.c)
+
+    def serve_step(rg: RingGraph, query_nodes, gen=None, *, uniforms=None):
+        if rg.indices is None:
+            raise ValueError("the ring graph has no CSR view to sample walks "
+                             "from: build it with build_ring_graph(..., csr=True)")
+        walks = step_walks(rg, query_nodes, gen, uniforms,
+                           walk_chunk=walk_chunk, max_len=max_len,
+                           sqrt_c=sqrt_c)
+        scores = probe_walks_ring(rg, walks, sqrt_c=sqrt_c,
+                                  frontier_dtype=frontier_dtype)
+        return serve_topk(scores, query_nodes, queries=queries,
+                          walk_chunk=walk_chunk, top_k=top_k)
+
+    return serve_step
 
 
 def _ring_push_level(bufs: list[Tensor], rg: RingGraph) -> list[Tensor]:
@@ -124,18 +200,22 @@ def _ring_push_level(bufs: list[Tensor], rg: RingGraph) -> list[Tensor]:
 
     ``bufs[s]`` is block s, resident on shard s.  At step t shard s holds
     block ``(s - t) mod S``, adds its bucket's live prefix, and passes the
-    block on (no pass after the last step).
+    block on (no pass after the last step).  A bucket goes in slices whose
+    gathered ``[slice, C]`` fp32 block stays under ``GATHER_BUDGET_BYTES``
+    (the slices keep the edges' order).
     """
     mesh, s_count, rows = rg.mesh, rg.shards, rg.rows
     accs = [torch.zeros((rows, b.shape[1]), dtype=torch.float32,
                         device=b.device) for b in bufs]
+    ch = max(1, GATHER_BUDGET_BYTES // max(1, bufs[0].shape[1] * 4))
     for step in range(s_count):
         for me in range(s_count):
             blk = (me - step) % s_count
             c = rg.counts[me][blk]
-            if c:
-                src = rg.src_sh[me][blk, :c].long()
-                dst = rg.dst_sh[me][blk, :c].long()
+            for a in range(0, c, ch):
+                b = min(c, a + ch)
+                src = rg.src_sh[me][blk, a:b].long()
+                dst = rg.dst_sh[me][blk, a:b].long()
                 accs[me].index_add_(0, dst, bufs[me][src].float())
         if step < s_count - 1:
             bufs = mesh.ring_shift(bufs)
@@ -153,28 +233,24 @@ def probe_walks_ring(
     """Telescoped probe with the ring push; returns scores [n_pad, C] on
     shard 0's device.  The frontier blocks are carried (and passed) in
     ``frontier_dtype``; pushes accumulate in fp32."""
-    mesh = rg.mesh
+    mesh, rows = rg.mesh, rg.rows
     c, length = walks.shape
-    rids = row_ids(mesh, rg.rows)
     cols = mesh.broadcast(walks)
+    ar = [torch.arange(c, device=d) for d in mesh.devices]
     w = push_weights(rg, sqrt_c)
-    scores = [torch.zeros((rg.rows, c), dtype=frontier_dtype, device=d)
+    scores = [torch.zeros((rows, c), dtype=frontier_dtype, device=d)
               for d in mesh.devices]
     for p in range(length, 1, -1):
-        for s in range(rg.shards):
-            sc = scores[s] + (rids[s] == cols[s][:, p - 1][None, :]).to(
-                frontier_dtype)
+        for s, sc in enumerate(scores):
+            inject(sc, cols[s][:, p - 1], s, rows, ar[s])
             if eps_p > 0.0:
-                thresh = eps_p / (sqrt_c ** (p - 1))
-                sc = torch.where(sc > thresh, sc, torch.zeros_like(sc))
-            scores[s] = sc
+                sc.masked_fill_(sc <= eps_p / (sqrt_c ** (p - 1)), 0.0)
         accs = _ring_push_level(scores, rg)
-        scores = [
-            torch.where(rids[s] == cols[s][:, p - 2][None, :],
-                        torch.zeros((), dtype=frontier_dtype, device=a.device),
-                        (a * w[s][:, None]).to(frontier_dtype))
-            for s, a in enumerate(accs)
-        ]
+        scores = [(a * w[s][:, None]).to(frontier_dtype)
+                  for s, a in enumerate(accs)]
+        del accs
+        for s, sc in enumerate(scores):
+            exclude(sc, cols[s][:, p - 2], s, rows, ar[s])
     return mesh.gather_rows(scores)
 
 

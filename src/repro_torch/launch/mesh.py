@@ -107,5 +107,20 @@ class ShardMesh:
         return [bufs[(i - 1) % s].to(self.devices[i]) for i in range(s)]
 
     def gather_rows(self, blocks: list[Tensor]) -> Tensor:
-        """The S blocks stacked in row order on the home device."""
+        """The S blocks stacked in row order on the home device (one block
+        is returned as it is, not copied)."""
+        if len(blocks) == 1:
+            return blocks[0].to(self.home)
         return torch.cat([b.to(self.home) for b in blocks])
+
+
+def mesh_for(device="cuda", shards: int | None = None) -> ShardMesh:
+    """The mesh a command line's ``--device`` / ``--shards`` ask for: one
+    block per visible card for ``"cuda"``, else every block on ``device``
+    (``"cpu"``, ``"cuda:0"``).  ``shards`` defaults to the CUDA device
+    count (at least 1)."""
+    if shards is None:
+        shards = max(torch.cuda.device_count(), 1)
+    if str(device) == "cuda":
+        return ShardMesh(shards=shards)
+    return ShardMesh([device] * shards)

@@ -231,16 +231,9 @@ def main(argv=None) -> list | None:
 def _mesh(args):
     """The ``ShardMesh`` of ``--backend sharded``: one block per visible
     card for ``--device cuda``, else every block on ``--device``."""
-    import torch
+    from repro_torch.launch.mesh import mesh_for
 
-    from repro_torch.launch.mesh import ShardMesh
-
-    shards = args.shards
-    if shards is None:
-        shards = max(torch.cuda.device_count(), 1)
-    if args.device == "cuda":
-        return ShardMesh(shards=shards)
-    return ShardMesh([args.device] * shards)
+    return mesh_for(args.device, args.shards)
 
 
 def _serve_forever(handle, args, mesh, *, n: int, m: int) -> None:

@@ -46,7 +46,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.streams.driver", "repro_torch.launch.serve",
                 "repro_torch.examples.quickstart", "repro_torch.launch.mesh",
                 "repro_torch.graph.partition", "repro_torch.core.distributed",
-                "repro_torch.core.ring"):
+                "repro_torch.core.ring", "repro_torch.configs.probesim",
+                "repro_torch.graph.io",
+                "repro_torch.examples.distributed_serve_demo",
+                "repro_torch.examples.dynamic_graph_serving"):
         assert new in mods, new
     script = (
         "import sys\n"

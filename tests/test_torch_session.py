@@ -163,8 +163,12 @@ def test_kernel_dtype_and_switches(powerlaw_handle):
 
 
 def test_not_ported_paths_raise(powerlaw_handle):
-    """The sharded backend is ported (tests/test_torch_sharded*.py); what
-    the production mesh alone needs still raises, naming its ROADMAP item."""
+    """The sharded backend is ported (tests/test_torch_sharded*.py), and so
+    are the production-mesh pieces that used to raise here: the CSR
+    sampler, both production steps and the abstract ring graph now return
+    walks, answers and shapes (held against the reference in
+    tests/test_torch_production.py)."""
+    from repro_torch.configs.base import ProbeSimConfig
     from repro_torch.core import distributed, ring
     from repro_torch.launch.mesh import ShardMesh
 
@@ -172,15 +176,24 @@ def test_not_ported_paths_raise(powerlaw_handle):
     sess = TA.SimRankSession(powerlaw_handle, backend="sharded", mesh=mesh)
     assert sess.backend.name == "sharded" and sess.handle is None
     assert powerlaw_handle.shard(mesh=mesh).shards == 2
-    calls = [
-        distributed.sample_walks_sharded,
-        distributed.make_serve_step,
-        ring.make_ring_serve_step,
-        ring.ring_graph_abstract,
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12b"):
-            call()
+    src, dst = powerlaw_handle.to_host_edges()
+    n = powerlaw_handle.n
+    sg = distributed.build_sharded_graph(src, dst, n, mesh=mesh, pad_nodes=8)
+    rg = ring.build_ring_graph(src, dst, n, mesh=mesh, csr=True)
+    u = int(np.bincount(dst, minlength=n).argmax())
+    walks = distributed.sample_walks_sharded(
+        torch.Generator().manual_seed(0), sg, [u], walks_per_query=16,
+        max_len=5, sqrt_c=0.775)
+    assert walks.shape == (16, 5) and bool((walks[:, 0] == u).all())
+    cfg = ProbeSimConfig(name="t", n=n, m=len(src))
+    for make, g in ((distributed.make_serve_step, sg),
+                    (ring.make_ring_serve_step, rg)):
+        step = make(cfg, queries=1, walk_chunk=16, max_len=5, top_k=4)
+        idx, vals = step(g, torch.tensor([u]), torch.Generator().manual_seed(0))
+        assert idx.shape == vals.shape == (1, 4) and u not in idx[0].tolist()
+        assert bool(torch.isfinite(vals).all()) and float(vals[0, 0]) > 0
+    abstract = ring.ring_graph_abstract(1000, 5000, 2, 2048)
+    assert abstract.src_sh[0].is_meta and abstract.src_sh[0].shape == (2, 2048)
 
 
 def test_backend_instance_and_errors(powerlaw_handle):

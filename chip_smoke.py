@@ -88,7 +88,18 @@ Phases (any failure exits non-zero before the result line):
    an 8 x 32,768 cache (``decode_32k``, batch cut from 128 to 8), with the
    launch counters read around that window (all 16 prefill launches on the
    tensor-core route); then kernel-off prefill and 64
-   teacher-forced decode steps against the kernel-on forward must agree.
+   teacher-forced decode steps against the kernel-on forward must agree;
+7. the roofline (``roofline_phase``): the dry-run's records
+   (``repro_torch.launch.dryrun`` on ``meta``: the probesim config uncut
+   at 256 and 512 blocks, the ring at 256, the three dense LMs at
+   prefill_32k and decode_32k), counted in niced processes on the host
+   from the start, each with its three terms and memory per block; the
+   op counter (``repro_torch.roofline``) on the card around the
+   production cut's steps (each also counted on ``meta``: equal FLOPs,
+   bytes and collective bytes), a HepPh drain of 8 and tree query, and
+   the Llama prefill, each run's least time at most 105 % of its
+   measured time; the kernel bounds at their known values (lane_probe
+   142.4 MB, spmm_ell 18.56 MB).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -99,21 +110,12 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s on the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-# exp2 on the special-function units: 16 a clock on each of the 132 SMs at
-# the 1.83 GHz boost clock (logged beside the bound, which is the larger of
-# the bytes and the tensor-core operations)
-PEAK_EXP_PER_S = 132 * 16 * 1.83e9
 
 FP32_RTOL = 1e-5  # kernel vs plain in fp32: only the summation order differs
 BF16_RTOL = 1e-3  # bf16 storage: ... or one bf16 step, see bf16_close
@@ -228,11 +230,23 @@ def time_ms(fn, reps: int) -> float:
     return events[1].elapsed_time(events[2]) / reps
 
 
-def bound_ms(nbytes: float, flops: float,
-             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def hw() -> dict:
+    """The H100's published peaks (``repro_torch.launch.mesh.HW``)."""
+    from repro_torch.launch.mesh import HW
+
+    return HW
+
+
+def bound_ms(work) -> tuple[float, str]:
+    """The least time of ``work`` (a ``repro_torch.roofline.analysis.Work``)
+    on the card in ms, and what bounds it ("bytes" or "operations")."""
+    t, by = work.bound_s(hw())
+    return t * 1e3, by
+
+
+def byte_bound_ms(nbytes: float) -> float:
+    """``nbytes`` over the card's HBM bandwidth, in ms."""
+    return nbytes / hw()["hbm_bw"] * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -400,44 +414,23 @@ def small_spmm_cases(gen, dev) -> None:
 
 
 def lane_bound(nbrs, row_len, n_live, w, fin, *, tot_inplace=False):
-    """Least bytes and operations of one lane_probe level over these rows
-    with this run's data: each live id read once, each distinct gathered
-    table row read once in the unfinished columns, dep read in the finished
-    columns, total read, out and tot written, the [W] vectors and row_len /
-    weights read once.  Returns (bound_ms, by, bytes)."""
-    import torch
+    """One lane_probe level's least work with this run's data
+    (``repro_torch.roofline.analysis.lane_probe_work``).  Returns
+    (bound_ms, by, bytes)."""
+    from repro_torch.roofline.analysis import lane_probe_work
 
-    r = nbrs.shape[0]
-    live_mask = (torch.arange(nbrs.shape[1], device=nbrs.device)[None, :]
-                 < row_len[:, None]) & (nbrs < n_live)
-    ids = nbrs[live_mask]
-    live = int(ids.numel())
-    distinct = int(torch.unique(ids).numel())
-    n_fin = int(fin.sum())
-    w_open = w - n_fin
-    nbytes = (live * 4 + r * 8 + distinct * w_open * 4 + r * n_fin * 4
-              + (r * w * 4) * (1 if tot_inplace else 3) + 4 * w * 4)
-    ops = live * w_open * 4 + r * w * 2
-    t, by = bound_ms(nbytes, ops)
-    return t, by, nbytes
+    work = lane_probe_work(nbrs, row_len, n_live, w, fin, tot_inplace=tot_inplace)
+    return (*bound_ms(work), work.bytes)
 
 
 def spmm_bound(nbrs, row_len, n, b, *, push=False):
-    """Least bytes and operations of one spmm_ell call: live ids, each
-    distinct gathered score row once, row_len / weights, the [R, B] output.
-    ``push`` (probe_push): also the B exclusion ids, and a threshold compare
-    beside each add."""
-    import torch
+    """One spmm_ell (``push``: probe_push) call's least work with this run's
+    data (``repro_torch.roofline.analysis.spmm_work``).  Returns (bound_ms,
+    by, bytes)."""
+    from repro_torch.roofline.analysis import spmm_work
 
-    r = nbrs.shape[0]
-    live_mask = (torch.arange(nbrs.shape[1], device=nbrs.device)[None, :]
-                 < row_len[:, None]) & (nbrs < n)
-    ids = nbrs[live_mask]
-    live = int(ids.numel())
-    distinct = int(torch.unique(ids).numel())
-    nbytes = live * 4 + r * 8 + distinct * b * 4 + r * b * 4 + push * b * 4
-    t, by = bound_ms(nbytes, live * b * (1 + push) + r * b)
-    return t, by, nbytes
+    work = spmm_work(nbrs, row_len, n, b, push=push)
+    return (*bound_ms(work), work.bytes)
 
 
 def kernel_phase(h, params, gen) -> dict:
@@ -513,7 +506,7 @@ def kernel_phase(h, params, gen) -> dict:
         log(f"lane_probe {SLICE_ROWS}-row slice [{lo}, {lo + SLICE_ROWS}) "
             f"{name}: {ms:.4f} ms, {live} live slots in {sp.n_chunks} chunks, "
             f"live-slot bound {new_b:.4f} ms, full-scan bound "
-            f"{bound_ms(SLICE_ROWS * k * 4, 0)[0]:.4f} ms")
+            f"{byte_bound_ms(SLICE_ROWS * k * 4):.4f} ms")
     log(f"lane_probe hub slice / no-hub slice: "
         f"{slice_ms['with the hub row'] / slice_ms['without it']:.2f}x")
 
@@ -550,7 +543,7 @@ def kernel_phase(h, params, gen) -> dict:
         f"{inplace_ms:.4f} ms, its bound {ip_bound:.4f} ms), plain "
         f"{lane_plain_ms:.1f} ms, live-slot bound {lane_bound_ms:.4f} ms "
         f"({lane_by}, {lane_bytes / 1e6:.1f} MB), full-scan bound "
-        f"{bound_ms(old_bytes, 0)[0]:.4f} ms; bits equal on a second run")
+        f"{byte_bound_ms(old_bytes):.4f} ms; bits equal on a second run")
 
     # --- spmm_ell: slice at B = 64, then the full table ---------------------
     b = 64
@@ -593,7 +586,7 @@ def kernel_phase(h, params, gen) -> dict:
         f"kernel {spmm_ms:.4f} ms, plain {spmm_plain_ms:.1f} ms, "
         f"torch.sparse.mm {lib_ms:.4f} ms, live-slot bound {spmm_bound_ms:.4f} ms "
         f"({spmm_by}, {spmm_bytes / 1e6:.2f} MB), full-scan bound "
-        f"{bound_ms(old_bytes, 0)[0]:.4f} ms; bits equal on a second run")
+        f"{byte_bound_ms(old_bytes):.4f} ms; bits equal on a second run")
     del csr, full, scores, sb, out, ref, ref_out, ref_tot, tot, total, buf
     torch.cuda.empty_cache()
     return {
@@ -603,6 +596,7 @@ def kernel_phase(h, params, gen) -> dict:
             replaces="src/repro/kernels/lane_probe/lane_probe.py:57",
             max_abs_err=lane_err, ms=lane_ms, plain_ms=lane_plain_ms,
             bound_ms=lane_bound_ms, bound_by=lane_by, library_ms=None,
+            bound_mb=lane_bytes / 1e6,
         ),
         "spmm_ell": dict(
             name="spmm_ell", route="cuda",
@@ -610,6 +604,7 @@ def kernel_phase(h, params, gen) -> dict:
             replaces="src/repro/kernels/spmm_ell/spmm_ell.py:31",
             max_abs_err=spmm_err, ms=spmm_ms, plain_ms=spmm_plain_ms,
             bound_ms=spmm_bound_ms, bound_by=spmm_by, library_ms=lib_ms,
+            bound_mb=spmm_bytes / 1e6,
         ),
     }
 
@@ -799,7 +794,7 @@ def probe_push_phase(h, params, gen) -> dict:
     log(f"probe_push full [{n}x{k}] B={b} thr={thr}: max_abs_err={err:.3e} "
         f"(bf16 {bf_err:.3e}), kernel {ms:.4f} ms, plain {p_ms:.1f} ms, "
         f"live-slot bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB), "
-        f"full-scan bound {bound_ms(full_bytes, 0)[0]:.4f} ms; bits equal on a "
+        f"full-scan bound {byte_bound_ms(full_bytes):.4f} ms; bits equal on a "
         "second run; no single PyTorch call computes it")
     return dict(
         name="probe_push", route="cuda",
@@ -819,6 +814,8 @@ def flash_phase(gen, dev) -> dict:
 
     from repro_torch.kernels.flash_attention.ops import flash_attention, route
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.mesh import PEAK_EXP_PER_S
+    from repro_torch.roofline.analysis import flash_work
 
     B, S, H, Hkv, dh = FLASH_SHAPE
     q, k, v = flash_inputs(gen, dev, B, S, S, H, Hkv, dh, torch.bfloat16)
@@ -848,8 +845,7 @@ def flash_phase(gen, dev) -> dict:
     del lib_out
     lib_ms = time_ms(library, 5)
     pairs = B * H * S * (S + 1) / 2
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
-    bound, by = bound_ms(nbytes, pairs * 4 * dh, PEAK_BF16_FLOPS)
+    bound, by = bound_ms(flash_work(q.shape, k.shape, causal=True, dtype=q.dtype))
     log(f"flash_attention B={B} S=T={S} H={H} Hkv={Hkv} dh={dh} bf16 causal "
         f"(tensor cores): max |diff| vs plain bf16-p {err:.3e}"
         f"{' (tc_close widened)' if widened else ' (bf16_close)'}, vs plain fp32-p "
@@ -879,6 +875,7 @@ def wide_flash(gen, dev) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.roofline.analysis import flash_work
 
     B, S, H, Hkv, dh = 1, 32768, 56, 8, 128
     q, k, v = flash_inputs(gen, dev, B, S, S, H, Hkv, dh, torch.bfloat16)
@@ -892,11 +889,12 @@ def wide_flash(gen, dev) -> None:
     diff = float((flash_attention(q, k, v, causal=True).float()
                   - library().float()).abs().max())
     lib_ms = time_ms(library, 3)
-    flops = B * H * S * (S + 1) / 2 * 4 * dh
+    work = flash_work(q.shape, k.shape, causal=True, dtype=q.dtype)
+    flops = work.flops
     log(f"flash_attention B={B} S=T={S} H={H} Hkv={Hkv} dh={dh} bf16 causal "
         f"(tensor cores): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
         f"scaled_dot_product_attention {lib_ms:.3f} ms, max |diff| {diff:.3e}, "
-        f"bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms (operations)")
+        f"bound {bound_ms(work)[0]:.3f} ms ({bound_ms(work)[1]})")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -2827,11 +2825,13 @@ def production_phase(dev) -> dict:
             # least bytes a step moves: each level reads the frontier and
             # writes the next once, and reads the edges (src, dst) once
             level = 2 * n_pad * q * b * wire + len(src) * 8
+            old_bound = byte_bound_ms((params.max_len - 1) * level)
             out[name] = production_cell(
                 f"{shape.name} {name}", bundle, g, queries, (cont, pick),
                 1000 * si, cols=q * b,
-                exch=exchange_bytes(s, n_pad, q * b, wire),
-                bound=(params.max_len - 1) * level / PEAK_BYTES_PER_S * 1e3)
+                exch=exchange_bytes(s, n_pad, q * b, wire), bound=old_bound)
+            count_cut(f"production {shape.name} {name}", bundle, g, queries,
+                      (cont, pick), out[name][2], old_bound)
             if name == "auto1" and si == 0:
                 profile("serve_batch step (auto, 1 block)",
                         lambda: bundle.step(g, dict(queries=queries, seed=7)))
@@ -3236,6 +3236,9 @@ def lm_phase(dev) -> int:
         warm_s = time.perf_counter() - t0
         log(f"LM path: second prefill of {S} tokens in {warm_s:.3f} s "
             f"({S / warm_s:.1f} tokens/s)")
+        count_on_card(f"llama3.2-1b prefill of {S} tokens",
+                      lambda: pre.step(model, dict(tokens=tokens)), warm_s * 1e3,
+                      model_flops=pre.model_flops())
 
         # where the time goes: one prefill and one decode step (position 16)
         profile(f"prefill of {S} tokens", lambda: pre.step(model, dict(tokens=tokens)))
@@ -3277,6 +3280,195 @@ def lm_phase(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The roofline: the dry-run on the host, the op counter on the card
+# ---------------------------------------------------------------------------
+
+# a counted run's least time over its measured time above this means the
+# counter counts work the card did not do
+ROOFLINE_SHARE_LIMIT = 1.05
+COUNTED: list = []  # one dict per counted run on the card
+# the dry-run's records (``repro_torch.launch.dryrun``), one process each,
+# counted on meta on the host while the card runs the other phases; the
+# ring at 512 blocks (4 x its 256-block time) is left to the CLI
+DRYRUN_CELLS = (
+    ("probesim", "serve_batch", "single", ()),
+    ("probesim", "serve_batch", "multi", ()),
+    ("probesim", "serve_online", "both", ()),
+    ("probesim", "serve_batch", "single", ("--set", "push_mode=ring", "--tag", "ring")),
+    ("probesim", "serve_online", "single", ("--set", "push_mode=ring", "--tag", "ring")),
+) + tuple((a, s, "both", ()) for a in ("llama3.2-1b", "yi-34b", "llama3-405b")
+          for s in ("prefill_32k", "decode_32k"))
+DRYRUN_TIMEOUT_S = 900
+
+
+def start_dryrun(out_dir: str) -> list:
+    """Start every DRYRUN_CELLS cell as a niced CLI process on the host (meta
+    tensors, no card); returns the processes, their commands and starts."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh, extra in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--mesh", mesh, "--out", out_dir, *extra]
+        procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True,
+                                       preexec_fn=lambda: os.nice(10)),
+                      cmd, time.perf_counter()))
+    return procs
+
+
+def stop_dryrun(procs) -> None:
+    for p, _, _ in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def record_count(name, ms, rep, counter, old_bound_ms=None) -> None:
+    """Log one counted run beside its measured time and keep it for the
+    share check."""
+    h = hw()
+    share = rep.roofline_s * 1e3 / ms
+    top = counter.top_ops(h, 3)
+    extra = (f"; the step's byte bound before the counter {old_bound_ms:.2f} ms "
+             f"against its memory term {rep.memory_s * 1e3:.2f} ms"
+             if old_bound_ms is not None else "")
+    log(f"  roofline {name}: measured {ms:.3f} ms, least {rep.roofline_s * 1e3:.3f} "
+        f"ms ({rep.bottleneck}; compute {rep.compute_s * 1e3:.3f}, memory "
+        f"{rep.memory_s * 1e3:.3f}, collective {rep.collective_s * 1e3:.3f} ms), "
+        f"share {share:.1%}; {counter.flops:.4g} FLOPs ({counter.tc_flops:.4g} "
+        f"on tensor cores), {counter.bytes:.4g} B, collectives "
+        f"{ {k: v for k, v in counter.collective_bytes.items() if v} }; most: "
+        + ", ".join(f"{n} x{c} {t * 1e3:.3f} ms" for n, c, t in top) + extra)
+    COUNTED.append(dict(name=name, ms=ms, share=share, top=top[0][0] if top else ""))
+
+
+def count_on_card(name, fn, ms, *, model_flops=0.0):
+    """Run ``fn`` once under the op counter on the card (one card: chips 1)
+    and record it against ``ms``, its measured time without the counter."""
+    import torch
+
+    from repro_torch.roofline.analysis import OpCounter, analyze
+
+    counter = OpCounter()
+    torch.cuda.synchronize()
+    with counter:
+        fn()
+    torch.cuda.synchronize()
+    rep = analyze(arch=name, shape="", mesh_name="card", chips=1, counter=counter,
+                  model_flops=model_flops, hw=hw())
+    record_count(name, ms, rep, counter)
+
+
+def count_cut(name, bundle, g, queries, uniforms, ms, old_bound_ms) -> None:
+    """The production step of the cut under the counter, on the card and on
+    ``meta`` (the same graph's shapes, blocks standing for cards): the two
+    must count the same FLOPs, bytes and collective bytes."""
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ShardMesh
+
+    inputs = dict(batch=dict(queries=queries, seed=0), uniforms=uniforms)
+    torch.cuda.synchronize()
+    rep, counter = dryrun.count_step(bundle, (g,), inputs, mesh_name="card",
+                                     chips=1)
+    torch.cuda.synchronize()
+    meta = arch.build_with_cfg("probesim", bundle.cfg, bundle.shape,
+                               mesh=ShardMesh(["meta"] * g.mesh.shards))
+    t0 = time.perf_counter()
+    _, mc = dryrun.count_step(meta, (dryrun.meta_like(g),), dryrun.meta_like(inputs),
+                              mesh_name="meta", chips=1)
+    require(mc.totals() == counter.totals(),
+            f"{name}: meta counts {mc.totals()} != card counts {counter.totals()}")
+    log(f"  {name}: the meta count equals the card's ({time.perf_counter() - t0:.1f} s "
+        f"on meta); the counter's live peak {counter.peak_bytes / 1e9:.2f} GB")
+    record_count(name, ms, rep, counter, old_bound_ms)
+
+
+def count_hepph(h, params, nodes) -> None:
+    """One drained batch of 8 (lane_probe) and one tree single_source
+    (spmm_ell) on the HepPh handle: timed, then counted on the same seeds."""
+    import torch
+
+    from repro_torch.api import SimRankSession
+    from repro_torch.core import single_source
+
+    def drain():
+        sess = SimRankSession(h, walk_chunk=256, batch_q=8, seed=2, own_graph=False)
+        for u in nodes[:8]:
+            sess.submit(u)
+        return sess.drain()
+
+    def tree():
+        return single_source(7, h.eg, h.eg, nodes[0], params, variant="tree",
+                             walk_chunk=256)
+
+    for name, fn in (("hepph drain of 8 queries", drain),
+                     ("hepph tree single_source", tree)):
+        fn()  # warm (chunk plans)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        count_on_card(name, fn, (time.perf_counter() - t0) * 1e3)
+
+
+def roofline_phase(procs, out_dir: str, rows: dict) -> None:
+    """The dry-run's records (each ported cell's three terms, bottleneck and
+    memory per block), the kernel bounds against their known values, and every
+    counted card run's share of its measured time."""
+    import os
+
+    t_phase = time.perf_counter()
+    for p, cmd, t0 in procs:
+        try:
+            text, _ = p.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                                - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            require(False, f"dry-run {' '.join(cmd[3:])} ran past {DRYRUN_TIMEOUT_S} s")
+        require(p.returncode == 0, f"dry-run {' '.join(cmd[3:])} failed:\n{text[-3000:]}")
+    want = []
+    for arch, shape, mesh, extra in DRYRUN_CELLS:
+        tag = "__ring" if extra else ""
+        want += [f"{arch}__{shape}__{m}{tag}.json"
+                 for m in (("single", "multi") if mesh == "both" else (mesh,))]
+    have = sorted(os.listdir(out_dir))
+    require(set(want) <= set(have) and not any("FAILED" in n for n in have),
+            f"dry-run records: missing {sorted(set(want) - set(have))}, have {have}")
+    log(f"dry-run on the host (meta, {len(want)} records; H100 peaks, "
+        f"{hw()['hbm_bw'] / 1e12:.2f} TB/s, {hw()['ici_bw'] / 1e9:.0f} GB/s NVLink):")
+    for name in want:
+        with open(os.path.join(out_dir, name)) as f:
+            r = json.load(f)
+        mem = r["memory_per_device"]
+        log(f"  {name[:-5]}: chips {r['chips']}, compute {r['compute_s'] * 1e3:.3f} ms, "
+            f"memory {r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms, bottleneck {r['bottleneck']}, "
+            f"useful/counted {r['useful_flops_ratio']:.3f}; per block "
+            f"{mem['argument_gb']:.2f} GB state + {mem['temp_gb']:.2f} GB live "
+            f"({'fits' if r['fits_hbm'] else 'does not fit'} 80 GB); counted in "
+            f"{r['count_s']:.1f} s")
+    lane_mb, spmm_mb = rows["lane_probe"]["bound_mb"], rows["spmm_ell"]["bound_mb"]
+    require(f"{lane_mb:.1f}" == "142.4" and f"{spmm_mb:.2f}" == "18.56",
+            f"kernel bounds moved: lane_probe {lane_mb} MB, spmm_ell {spmm_mb} MB")
+    log(f"kernel bounds from repro_torch.roofline: lane_probe {lane_mb:.1f} MB, "
+        f"spmm_ell {spmm_mb:.2f} MB (their known values)")
+    worst = max(COUNTED, key=lambda c: c["share"])
+    for c in COUNTED:
+        require(c["share"] <= ROOFLINE_SHARE_LIMIT,
+                f"{c['name']}: least time {c['share']:.1%} of the measured; "
+                f"the op that counts the most: {c['top']}")
+    log(f"roofline phase: {len(COUNTED)} counted card runs, shares "
+        f"{min(c['share'] for c in COUNTED):.1%} to {worst['share']:.1%} "
+        f"({worst['name']}); {time.perf_counter() - t_phase:.1f} s waiting and "
+        f"checking; card: {card()}")
+
+
 def main() -> int:
     import torch
 
@@ -3290,16 +3482,29 @@ def main() -> int:
 
     require(Path(repro_torch.__file__).resolve().parent == pkg,
             f"imported {repro_torch.__file__}, not the checkout's package")
-    from repro_torch.api import GraphHandle
-    from repro_torch.core import make_params
-    from repro_torch.graph import paper_dataset
-    from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(card())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = start_dryrun(out_dir)
+        try:
+            return run(procs, out_dir)
+        finally:
+            stop_dryrun(procs)
+
+
+def run(procs, out_dir: str) -> int:
+    """Every phase on the card, then the roofline phase; prints the result."""
+    import torch
+
+    from repro_torch.api import GraphHandle
+    from repro_torch.core import make_params
+    from repro_torch.graph import paper_dataset
+    from repro_torch.kernels import _build
+
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.build_all()
@@ -3330,6 +3535,7 @@ def main() -> int:
     rows["probe_push"] = probe_push_phase(h, params, gen)
     launches, nodes = main_path(h, params)
     profile_batch(h, nodes)
+    count_hepph(h, params, nodes)
     toy_accuracy(dev)
     acc_launches = accuracy_phase(h)
     svc_launches = service_phase(h)
@@ -3342,6 +3548,7 @@ def main() -> int:
         dyn_launches[k] += v
     stream_launches = stream_phase(dev)
     lm_launches = lm_phase(dev)
+    roofline_phase(procs, out_dir, rows)
 
     # each kernel's launches in the windows of the paths that run it; probe_push
     # is on no path (the reference calls it only from its tests)

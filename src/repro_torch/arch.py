@@ -4,7 +4,8 @@
 ``ArchBundle`` exposing, as the reference's ``repro.arch`` does:
 
 * ``init(gen)``     -> the state tuple: ``(model,)`` for prefill,
-  ``(model, caches)`` for decode, drawn from a ``torch.Generator``;
+  ``(model, caches)`` for decode, drawn from a ``torch.Generator`` (on a
+  ``meta`` bundle ``init()`` gives the shapes alone, as ``meta`` tensors);
   ``(graph,)`` for the ProbeSim family;
 * ``input_specs()`` -> dict[name, TensorSpec] of the step's batch;
 * ``step``          -> the serving step (prefill: ``step(model, batch)`` ->
@@ -23,6 +24,7 @@ bundles run on ``mesh`` (a ``ShardMesh``), by default one block on
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -32,6 +34,7 @@ from repro_torch.configs.base import (
     ProbeSimConfig,
     ShapeSpec,
     TransformerConfig,
+    family_of,
     get_config,
     shapes_for,
 )
@@ -83,7 +86,9 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
                                      use_kernel=use_kernel, last_only=True)
             return logits[:, 0]
 
-        def init(gen):
+        def init(gen=None):
+            if device.type == "meta":
+                return (M.init_lm(None, cfg),)
             gen_device(gen)
             return (M.init_lm(gen, cfg),)
 
@@ -96,7 +101,9 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
             return M.lm_decode_step(model, caches, batch["tokens"],
                                     batch["positions"], cfg)
 
-        def init(gen):
+        def init(gen=None):
+            if device.type == "meta":
+                return (M.init_lm(None, cfg), M.init_cache(cfg, B, S, device))
             gen_device(gen)
             return (M.init_lm(gen, cfg), M.init_cache(cfg, B, S, device))
 
@@ -143,7 +150,8 @@ def _probesim_bundle(arch: str, cfg: ProbeSimConfig, shape: ShapeSpec, *,
     Bw = d["walk_chunk"]
     params = make_params(cfg.n, c=cfg.c, eps_a=cfg.eps_a, delta=cfg.delta)
     L = params.max_len
-    n_pad_mult = 16 * 8
+    # the reference's 16 x 8, and a whole number of rows a block
+    n_pad_mult = math.lcm(16 * 8, mesh.shards)
     m_pad_mult = 512 * 8  # divisible by all device counts x edge chunks
     ring = cfg.push_mode == "ring"
     fdt = torch.bfloat16 if cfg.frontier_dtype == "bfloat16" else torch.float32
@@ -158,7 +166,8 @@ def _probesim_bundle(arch: str, cfg: ProbeSimConfig, shape: ShapeSpec, *,
     def step(graph, batch, *, uniforms=None):
         """``batch = {"queries": [Q] int32, "seed": int}``; the walks come
         from a generator seeded with ``seed`` on the mesh's home device,
-        or from ``uniforms = (cont, pick)``."""
+        or from ``uniforms = (cont, pick)`` (on a ``meta`` mesh, which has
+        no generator, ``meta`` draws)."""
         gen = None
         if uniforms is None:
             gen = make_generator(int(batch["seed"]), mesh.home)
@@ -167,8 +176,8 @@ def _probesim_bundle(arch: str, cfg: ProbeSimConfig, shape: ShapeSpec, *,
     def init(gen=None):
         """The graph: a real ``powerlaw_graph(n, m, seed=0)`` up to
         ``REAL_GRAPH_MAX_N`` nodes (``gen`` is not used: the graph's seed is
-        fixed, as in the reference), else its full-scale shapes as ``meta``
-        tensors."""
+        fixed, as in the reference) placed on the mesh, else its full-scale
+        shapes as ``meta`` tensors over the mesh's block count."""
         shards = mesh.shards
         if cfg.n <= REAL_GRAPH_MAX_N:
             from repro_torch.graph.generators import powerlaw_graph
@@ -248,8 +257,7 @@ def _shrink_shape(cfg, shape: ShapeSpec) -> ShapeSpec:
 def is_applicable(arch: str, shape_name: str) -> tuple[bool, str]:
     """Cell applicability (the reference's rule: pure full-attention LMs
     skip long_500k)."""
-    cfg = get_config(arch)
-    if cfg.family == "lm" and shape_name == "long_500k":
+    if family_of(arch) == "lm" and shape_name == "long_500k":
         return (
             False,
             "pure full-attention arch: long_500k skipped per assignment "

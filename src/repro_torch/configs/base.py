@@ -4,14 +4,15 @@
 Each ported architecture registers one module in this package exposing
 ``CONFIG`` (full scale, the published numbers) and ``SMOKE`` (reduced,
 CPU-runnable).  The dataclasses are the reference's, field for field, so a
-config compares equal across the two packages.  The LM and ProbeSim
-families are ported; the GNN and recsys configs wait for their slices
-(ROADMAP queue 1 item 14).
+config compares equal across the two packages.  The dense LM configs and
+ProbeSim are ported; the MoE / MLA, GNN and recsys configs wait for their
+slices (ROADMAP queue 1 item 14), but ``ARCH_IDS``, every family's shapes
+and ``family_of`` cover them, so a dry-run can name each cell it skips.
 """
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 
@@ -138,20 +139,84 @@ LM_SHAPES = [
     ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
 ]
 
+GNN_SHAPES = [
+    ShapeSpec(
+        "full_graph_sm",
+        "full_graph",
+        dict(n_nodes=2708, n_edges=10556, d_feat=1433),
+    ),
+    ShapeSpec(
+        "minibatch_lg",
+        "minibatch",
+        dict(
+            n_nodes=232_965,
+            n_edges=114_615_892,
+            batch_nodes=1024,
+            fanout=(15, 10),
+            d_feat=602,
+        ),
+    ),
+    ShapeSpec(
+        "ogb_products",
+        "full_graph",
+        dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100),
+    ),
+    ShapeSpec(
+        "molecule",
+        "batched_graphs",
+        dict(n_nodes=30, n_edges=64, batch=128, d_feat=16),
+    ),
+]
+
+RECSYS_SHAPES = [
+    ShapeSpec("train_batch", "train", dict(batch=65536)),
+    ShapeSpec("serve_p99", "serve", dict(batch=512)),
+    ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
+    ShapeSpec(
+        "retrieval_cand", "retrieval", dict(batch=1, n_candidates=1_000_000)
+    ),
+]
+
 PROBESIM_SHAPES = [
     ShapeSpec("serve_batch", "simrank_serve", dict(queries=8, walk_chunk=256)),
     ShapeSpec("serve_online", "simrank_serve", dict(queries=1, walk_chunk=256)),
 ]
 
+ARCH_IDS = [
+    "deepseek-v2-lite-16b",
+    "qwen2-moe-a2.7b",
+    "llama3-405b",
+    "yi-34b",
+    "llama3.2-1b",
+    "gin-tu",
+    "gcn-cora",
+    "gatedgcn",
+    "nequip",
+    "wide-deep",
+    "probesim",  # the paper's own config
+]
+
 _MODULE_OF = {
+    "llama3-405b": "llama3_405b",
+    "yi-34b": "yi_34b",
     "llama3.2-1b": "llama3_2_1b",
     "probesim": "probesim",
 }
 
 NOT_PORTED = (
-    "deepseek-v2-lite-16b", "qwen2-moe-a2.7b", "llama3-405b", "yi-34b",
+    "deepseek-v2-lite-16b", "qwen2-moe-a2.7b",
     "gin-tu", "gcn-cora", "gatedgcn", "nequip", "wide-deep", "gat-bonus",
 )
+
+# the family of each config not ported yet (the reference's ``cfg.family``)
+_FAMILY_OF_UNPORTED = {
+    "deepseek-v2-lite-16b": "lm", "qwen2-moe-a2.7b": "lm",
+    "gin-tu": "gnn", "gcn-cora": "gnn", "gatedgcn": "gnn", "nequip": "gnn",
+    "gat-bonus": "gnn", "wide-deep": "recsys",
+}
+
+_SHAPES_OF = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES,
+              "probesim": PROBESIM_SHAPES}
 
 
 def get_config(arch: str, smoke: bool = False):
@@ -165,12 +230,17 @@ def get_config(arch: str, smoke: bool = False):
     return mod.SMOKE if smoke else mod.CONFIG
 
 
+def family_of(arch: str) -> str:
+    """The arch's family, ported or not."""
+    if arch in _FAMILY_OF_UNPORTED:
+        return _FAMILY_OF_UNPORTED[arch]
+    return get_config(arch).family
+
+
 def shapes_for(arch: str) -> list[ShapeSpec]:
-    cfg = get_config(arch)
-    if cfg.family == "lm":
-        return list(LM_SHAPES)
-    if cfg.family == "probesim":
-        return list(PROBESIM_SHAPES)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 14)"
-    )
+    return list(_SHAPES_OF[family_of(arch)])
+
+
+def scale_down(cfg, **overrides):
+    """Helper for SMOKE configs."""
+    return replace(cfg, **overrides)

@@ -2,6 +2,7 @@
 
     make_params         error-budget accounting (Thm 1 + 2)
     single_source       approximate single-source SimRank (Alg. 1 + §4)
+    single_source_simple  deprecated wrapper (a handle, or a bare ELL graph)
     topk                approximate top-k SimRank (Def. 2)
     multi_source        fused multi-query serve path
     multi_source_topk   fused batched top-k (Def. 2)
@@ -22,7 +23,12 @@ from repro_torch.core.accuracy import (
     escalation_schedule,
     normal_quantile,
 )
-from repro_torch.core.epoch import epoch_step
+from repro_torch.core.epoch import (
+    ShardEpochGraph,
+    build_shard_epoch_graph,
+    epoch_step,
+    make_sharded_epoch_step,
+)
 from repro_torch.core.montecarlo import (
     mc_pool_scores,
     mc_single_pair,
@@ -59,7 +65,7 @@ from repro_torch.core.probe import (
     push_level,
     push_level_padded,
 )
-from repro_torch.core.probesim import single_source, topk
+from repro_torch.core.probesim import single_source, single_source_simple, topk
 from repro_torch.core.tree import build_prefix_tree, tree_stats
 from repro_torch.core.tsf import build_oneway_index, tsf_single_source
 from repro_torch.core.walks import (
@@ -77,11 +83,13 @@ __all__ = [
     "Certificate",
     "ProbeCache",
     "ProbeSimParams",
+    "ShardEpochGraph",
     "abs_error_bound",
     "bound_from_sampling_error",
     "build_oneway_index",
     "build_pool",
     "build_prefix_tree",
+    "build_shard_epoch_graph",
     "derive_seed",
     "empirical_error_bound",
     "epoch_step",
@@ -91,6 +99,7 @@ __all__ = [
     "fused_serve",
     "make_generator",
     "make_params",
+    "make_sharded_epoch_step",
     "mc_pool_scores",
     "mc_single_pair",
     "mc_single_source",
@@ -110,6 +119,7 @@ __all__ = [
     "simrank_power_host",
     "simrank_truncated_single_source",
     "single_source",
+    "single_source_simple",
     "topk",
     "tree_stats",
     "tsf_single_source",

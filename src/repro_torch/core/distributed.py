@@ -62,6 +62,13 @@ from repro_torch.graph.structs import GATHER_BUDGET_BYTES
 Tensor = torch.Tensor
 
 
+def even_split(total: int, parts: int) -> list[int]:
+    """``total`` split into ``parts`` host ints as evenly as it goes (the
+    remainder on the first parts)."""
+    q, r = divmod(int(total), parts)
+    return [q + (i < r) for i in range(parts)]
+
+
 def row_block(x: Tensor, s: int, rows: int) -> Tensor:
     """Shard s's rows of a per-shard node vector, which is either its row
     block already or a full ``[n_pad]`` replica."""
@@ -186,8 +193,9 @@ def sharded_graph_abstract(n: int, m: int, shards: int, *, pad_nodes: int,
     """The full-scale graph as ``meta`` tensors (shapes and dtypes only,
     nothing allocated): concatenated over the blocks they are the
     reference's ``indptr`` / ``in_deg`` [n_pad] and ``indices`` / ``src`` /
-    ``dst`` [m_pad], the edges split evenly over the blocks.  ``counts``
-    and ``base`` are unknown: None."""
+    ``dst`` [m_pad], the edges split evenly over the blocks: block s holds
+    ``counts[s]`` of the m live edges (m / S, the remainder on the first
+    blocks) from CSR offset ``base[s]``."""
     from repro_torch.launch.mesh import ShardMesh
 
     n_pad = pad_to_multiple(n, pad_nodes)
@@ -200,11 +208,13 @@ def sharded_graph_abstract(n: int, m: int, shards: int, *, pad_nodes: int,
         return [torch.empty((size,), dtype=torch.int32, device="meta")
                 for _ in range(shards)]
 
+    counts = even_split(m, shards)
     return ShardedGraph(
         indptr=blocks(n_pad // shards), in_deg=blocks(n_pad // shards),
         indices=blocks(m_pad // shards), src_sh=blocks(m_pad // shards),
         dst_sh=blocks(m_pad // shards),
-        counts=None, base=None, n=int(n), n_pad=n_pad, m=int(m), m_pad=m_pad,
+        counts=counts, base=[int(b) for b in np.cumsum([0] + counts[:-1])],
+        n=int(n), n_pad=n_pad, m=int(m), m_pad=m_pad,
         mesh=ShardMesh(["meta"] * shards),
     )
 

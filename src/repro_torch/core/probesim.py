@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.multisource import multi_source, topk_rows
-from repro_torch.core.params import ProbeSimParams
+from repro_torch.core.params import ProbeSimParams, make_params
 from repro_torch.core.probe import (
     estimate_walk_reference,
     probe_tree_levels,
@@ -130,3 +130,41 @@ def topk(
     us = torch.tensor([u], device=est.device)
     idx, vals = topk_rows(est[None, :], us, k)
     return idx[0], vals[0]
+
+
+def single_source_simple(
+    seed: int,
+    eg,
+    u: int,
+    *,
+    n: int | None = None,
+    c: float = 0.6,
+    eps_a: float = 0.1,
+    delta: float = 0.01,
+    **kwargs,
+) -> Tensor:
+    """DEPRECATED convenience wrapper — prefer a ``GraphHandle``.
+
+    The legacy form takes a bare ``EllGraph`` and silently uses it as BOTH
+    the push and the gather representation (i.e. it is exactly
+    ``single_source(seed, eg, eg, u, ...)`` — correct, but it forfeits the
+    COO push mirror without saying so).  Pass a
+    :class:`repro_torch.api.GraphHandle` instead and the mirror choice is
+    explicit: the handle's COO ``g`` pushes, its ELL ``eg`` gathers.
+    """
+    from repro_torch.api.handle import GraphHandle  # local: core <-> api layering
+
+    if isinstance(eg, GraphHandle):
+        params = make_params(n or eg.n, c=c, eps_a=eps_a, delta=delta)
+        return single_source(seed, eg.g, eg.eg, u, params, **kwargs)
+    import warnings
+
+    warnings.warn(
+        "single_source_simple(eg) uses the ELL table as both the push and "
+        "gather mirror; pass a repro_torch.api.GraphHandle (explicit mirrors) "
+        "or call single_source / SimRankSession.query directly",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    params = make_params(n or eg.n, c=c, eps_a=eps_a, delta=delta)
+    return single_source(seed, eg, eg, u, params, **kwargs)

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.distributed import (
     csr_blocks,
+    even_split,
     exclude,
     inject,
     lane_level,
@@ -148,7 +149,8 @@ def ring_graph_abstract(n: int, m: int, shards: int, e_max: int) -> RingGraph:
     only, nothing allocated): stacked or concatenated over the shards they
     are the reference's ``src_sh`` / ``dst_sh`` [S, S, e_max], ``in_deg`` /
     ``indptr`` [n_pad] and ``indices`` [m_pad] (``m_pad`` a multiple of
-    4,096, split evenly over the blocks).  ``counts`` is unknown: None."""
+    4,096, split evenly over the blocks).  The m live edges are split
+    evenly over the S x S buckets (``counts``), each within ``e_max``."""
     from repro_torch.launch.mesh import ShardMesh
 
     mesh = ShardMesh(["meta"] * shards)
@@ -160,11 +162,17 @@ def ring_graph_abstract(n: int, m: int, shards: int, e_max: int) -> RingGraph:
         return [torch.empty(shape, dtype=torch.int32, device="meta")
                 for _ in range(shards)]
 
+    live = even_split(m, shards * shards)
+    if live[0] > e_max:
+        raise ValueError(f"{live[0]} edges a bucket exceed e_max {e_max}")
     return RingGraph(
         src_sh=blocks(shards, e_max), dst_sh=blocks(shards, e_max),
-        counts=None, in_deg=blocks(n_pad), n=int(n), n_pad=n_pad,
+        counts=[live[s * shards : (s + 1) * shards] for s in range(shards)],
+        in_deg=blocks(n_pad), n=int(n), n_pad=n_pad,
         shards=shards, mesh=mesh, indptr=blocks(rows),
-        indices=blocks(m_pad // shards), base=None, m=int(m),
+        indices=blocks(m_pad // shards),
+        base=[int(b) for b in np.cumsum([0] + even_split(m, shards)[:-1])],
+        m=int(m),
     )
 
 

@@ -22,7 +22,10 @@ as in the Pallas kernel.  Softmax statistics and accumulation are fp32.
 ``flash_attention.launches`` counts kernel launches of either route,
 ``flash_attention.tc_launches`` those of the tensor-core route.  A CUDA
 tensor on a route launches that route's kernel or raises; nothing falls
-back to the other.
+back to the other.  ``meta`` tensors take the meta route: the checks,
+then an empty output of the right shape and dtype (a dry-run's step),
+nothing computed.  Under a ``roofline.analysis`` counter a call counts as
+one op of ``flash_work`` on every route.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.roofline.analysis import counted_op, flash_work
 
 Tensor = torch.Tensor
 
@@ -84,6 +88,11 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> None:
         raise ValueError("flash_attention: S must be at most 65535 * 128")
 
 
+def _work(q, k, v, *, causal=True, scale=None):
+    return flash_work(q.shape, k.shape, causal=causal, dtype=q.dtype)
+
+
+@counted_op("flash_attention", _work)
 def flash_attention(
     q: Tensor,  # [B, S, H, dh]
     k: Tensor,  # [B, T, Hkv, dh]
@@ -97,6 +106,9 @@ def flash_attention(
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        _check(q, k, v, causal)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v, causal)

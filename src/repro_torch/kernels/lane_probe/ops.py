@@ -25,7 +25,8 @@ name destinations: ``out`` may not overlap any input, ``tot`` may be
 overlap nothing else.
 
 ``lane_probe_level.launches`` counts kernel launches (not plain-version
-calls); set it to 0 to start a count.
+calls); set it to 0 to start a count.  Under a ``roofline.analysis``
+counter a call counts as one op of ``lane_probe_work`` on every route.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_plan import launch_args, launch_layout, plan_of
 from repro_torch.kernels.lane_probe.ref import lane_probe_level_ref
+from repro_torch.roofline.analysis import counted_op, lane_probe_work
 
 Tensor = torch.Tensor
 
@@ -119,6 +121,14 @@ def _destinations(out, tot, table, dep, total, r, w):
     return out, tot, inplace
 
 
+def _work(nbrs, weights, table, dep, total, fin, *_, row_len, n_live,
+          tot=None, **__):
+    inplace = tot is not None and tot.data_ptr() == total.data_ptr()
+    return lane_probe_work(nbrs, row_len, n_live, table.shape[1], fin,
+                           tot_inplace=inplace, itemsize=table.element_size())
+
+
+@counted_op("lane_probe_level", _work)
 def lane_probe_level(
     nbrs: Tensor,     # int32 [R, K] global in-neighbor ids (sentinel >= n_live)
     weights: Tensor,  # f32 [R] push weights (inv_in_deg * sqrt_c)

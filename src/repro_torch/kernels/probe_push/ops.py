@@ -14,7 +14,9 @@ the plain version (``ref.py``).  The reference wrapper's tile conditions
 (``n % 128``, ``B % 8``) do not apply, and the kernel reads the unpadded
 ``[n, B]`` scores (a sentinel slot is skipped, so no zero row is needed).
 Storage is float32, float16 or bfloat16; sums are fp32.
-``probe_push.launches`` counts kernel launches.
+``probe_push.launches`` counts kernel launches.  Under a
+``roofline.analysis`` counter a call counts as one op of
+``spmm_work(push=True)`` on every route.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_plan import launch_args, launch_layout, plan_of
 from repro_torch.kernels.probe_push.ref import probe_push_ref
+from repro_torch.roofline.analysis import counted_op, spmm_work
 
 Tensor = torch.Tensor
 
@@ -40,6 +43,12 @@ def _kernel(dtype):
     return fn
 
 
+def _work(nbrs, scores, weights, exclude, *, row_len, **_):
+    return spmm_work(nbrs, row_len, scores.shape[0], scores.shape[1], push=True,
+                     itemsize=scores.element_size())
+
+
+@counted_op("probe_push", _work)
 def probe_push(
     nbrs: Tensor,  # int32 [n, K], sentinel = n
     scores: Tensor,  # [n, B]

@@ -13,7 +13,9 @@ launches ``csrc/spmm_ell.cu`` (which replaces the Pallas kernel
 ``row_len`` (``kernels/ell_plan.py``, built on the first launch with that
 ``row_len`` tensor and kept), or raises; given CPU tensors it runs the plain version
 (``ref.py``).  Storage may be float32, float16 or bfloat16; accumulation
-is fp32.  ``spmm_ell_padded.launches`` counts kernel launches.
+is fp32.  ``spmm_ell_padded.launches`` counts kernel launches.  Under a
+``roofline.analysis`` counter either call counts as one op of
+``spmm_work`` on every route.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_plan import launch_args, launch_layout, plan_of
 from repro_torch.kernels.spmm_ell.ref import spmm_ell_padded_ref
+from repro_torch.roofline.analysis import counted_op, spmm_work
 
 Tensor = torch.Tensor
 
@@ -38,6 +41,18 @@ def _kernel(dtype):
     return fn
 
 
+def _padded_work(nbrs, scores, weights, *, row_len):
+    return spmm_work(nbrs, row_len, scores.shape[0] - 1, scores.shape[1],
+                     itemsize=scores.element_size())
+
+
+def _work(nbrs, scores, weights, *, row_len):
+    b = 1 if scores.dim() == 1 else scores.shape[1]
+    return spmm_work(nbrs, row_len, scores.shape[0], b,
+                     itemsize=scores.element_size())
+
+
+@counted_op("spmm_ell_padded", _padded_work)
 def spmm_ell_padded(nbrs: Tensor, scores: Tensor, weights: Tensor, *,
                     row_len: Tensor) -> Tensor:
     """out[v] = w[v] * sum_{k < row_len[v]} scores[nbrs[v, k]]; scores
@@ -90,6 +105,7 @@ def spmm_ell_padded(nbrs: Tensor, scores: Tensor, weights: Tensor, *,
 spmm_ell_padded.launches = 0
 
 
+@counted_op("spmm_ell", _work)
 def spmm_ell(nbrs: Tensor, scores: Tensor, weights: Tensor, *,
              row_len: Tensor) -> Tensor:
     """out[v] = w[v] * sum_{k < row_len[v]} scores[nbrs[v, k]]; scores [n, B]

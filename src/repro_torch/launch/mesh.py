@@ -13,7 +13,20 @@ Entries may repeat: ``ShardMesh(["cuda:0"] * 4)`` runs four real row
 blocks on one card, as the JAX package's forced host device count does on
 the CPU.  Then an all-gather is one ``torch.cat`` shared by every shard and
 a ring step is a rotation of the list.  On distinct devices both are peer
-copies (``Tensor.to``), ordered by PyTorch's cross-device copy.
+copies (``Tensor.to``), ordered by PyTorch's cross-device copy.  Under a
+``roofline.analysis.OpCounter`` each exchange counts the bytes the blocks
+receive from other blocks (``all-gather`` / ``collective-permute``), the
+same whether the blocks share a device or not.
+
+``meta`` entries stand for cards that are not there: ``make_production_mesh``
+gives 256 (or 512) ``meta`` blocks, the counterparts of the reference's
+16 x 16 and 2 x 16 x 16 meshes, so a dry-run runs the step over the
+production layout and allocates nothing.  A ``meta`` mesh is never
+``single_device``: each block keeps its own gathered frontier, as on
+distinct cards, and ``chips`` counts one card a block.
+
+``HW`` holds the H100's published peaks (the reference's ``HW`` holds its
+TPU's), under the reference's keys.
 
 There is no data axis: the JAX package only replicates the same program
 over it, so it changes no answer.  ``ShardMesh()`` takes one shard per
@@ -22,13 +35,47 @@ the device count to be divisible by S.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.graph.structs import resolve_device
+from repro_torch.roofline.analysis import Work, counted_op
 
 Tensor = torch.Tensor
 
 WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# NVIDIA H100 SXM, published dense rates at the 700 W power limit (NVIDIA's
+# H100 data sheet).  fp32 runs outside the tensor cores; NVLink 4 is 900 GB/s
+# in both directions together, 450 GB/s each way (the bytes a card receives).
+HW = dict(
+    peak_flops_bf16=989e12,  # FLOP/s per card, tensor cores, bf16 / fp16
+    peak_flops_fp32=67e12,  # FLOP/s per card, CUDA cores
+    hbm_bw=3.35e12,  # B/s per card (HBM3)
+    hbm_bytes=80e9,  # B per card
+    ici_bw=450e9,  # B/s per card each way over NVLink (the reference's key)
+)
+# exp2 on the special-function units: 16 a clock on each of the 132 SMs at
+# the 1.83 GHz boost clock
+PEAK_EXP_PER_S = 132 * 16 * 1.83e9
+
+
+def _gather_work(mesh, blocks, *, wire: str = "float32") -> Work:
+    """An all-gather's bytes over the links: each block receives every
+    other block in the wire dtype."""
+    itemsize = WIRE_DTYPES[wire].itemsize
+    rows = sum(b.shape[0] for b in blocks)
+    got = sum((rows - b.shape[0]) * math.prod(b.shape[1:]) * itemsize
+              for b in blocks)
+    return Work(collective={"all-gather": got})
+
+
+def _shift_work(mesh, bufs) -> Work:
+    """A ring step's bytes over the links: every block moves to the next
+    shard (nothing moves on a one-block ring)."""
+    moved = sum(b.numel() * b.element_size() for b in bufs) if len(bufs) > 1 else 0
+    return Work(collective={"collective-permute": moved})
 
 
 class ShardMesh:
@@ -58,11 +105,22 @@ class ShardMesh:
             )
         self.devices = devices
         # one device for every block: exchanges are a cat and a rotation
-        self.single_device = len(set(devices)) == 1
+        # (meta blocks stand for distinct cards)
+        self.single_device = (len(set(devices)) == 1
+                              and devices[0].type != "meta")
 
     @property
     def shards(self) -> int:
         return len(self.devices)
+
+    @property
+    def chips(self) -> int:
+        """The cards the blocks run on: one a block on ``meta`` (a dry-run's
+        blocks are the production mesh's cards), else the distinct
+        devices."""
+        if self.devices[0].type == "meta":
+            return self.shards
+        return len(set(self.devices))
 
     @property
     def home(self) -> torch.device:
@@ -82,6 +140,7 @@ class ShardMesh:
         two shards share a device (per-shard state written per shard)."""
         return [x.to(d, copy=True) for d in self.devices]
 
+    @counted_op("all_gather_rows", _gather_work)
     def all_gather_rows(self, blocks: list[Tensor], *,
                         wire: str = "float32") -> list[Tensor]:
         """Every shard's view of the whole frontier: the S ``[rows, W]``
@@ -97,10 +156,11 @@ class ShardMesh:
             return [full] * self.shards
         out = []
         for d in self.devices:
-            full = torch.cat([b.to(d) for b in sent])
+            full = torch.cat([b if b.device == d else b.to(d) for b in sent])
             out.append(full.float() if dt != torch.float32 else full)
         return out
 
+    @counted_op("ring_shift", _shift_work)
     def ring_shift(self, bufs: list[Tensor]) -> list[Tensor]:
         """Block s moves to shard s + 1 (mod S)."""
         s = self.shards
@@ -112,6 +172,16 @@ class ShardMesh:
         if len(blocks) == 1:
             return blocks[0].to(self.home)
         return torch.cat([b.to(self.home) for b in blocks])
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> ShardMesh:
+    """The production mesh: 256 row blocks, or 512 with ``multi_pod`` (the
+    block counts of the reference's 16 x 16 and 2 x 16 x 16 meshes), on
+    ``meta`` unless ``devices`` names them (then it must name that many)."""
+    shards = 512 if multi_pod else 256
+    if devices is None:
+        devices = ["meta"] * shards
+    return ShardMesh(devices, shards=shards)
 
 
 def mesh_for(device="cuda", shards: int | None = None) -> ShardMesh:

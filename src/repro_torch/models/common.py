@@ -23,10 +23,13 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+def dense_init(gen: torch.Generator | None, d_in: int, d_out: int, dtype,
                scale: float | None = None) -> Tensor:
     """N(0, 1) * scale (default 1/sqrt(d_in)), drawn in fp32 on the
-    generator's device, then cast."""
+    generator's device, then cast; with no generator, its shape and dtype
+    as a ``meta`` tensor."""
+    if gen is None:
+        return torch.empty((d_in, d_out), dtype=dtype, device="meta")
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, device=gen.device)
     return (w * s).to(dtype)
@@ -61,6 +64,16 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def count_params(params: Any) -> int:
+    """Elements of every parameter: of a module, or of a nested dict of
+    tensors."""
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
 
 
 def cast_tree(params: Any, dtype) -> Any:

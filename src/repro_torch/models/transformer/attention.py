@@ -97,7 +97,7 @@ def _out(o: Tensor, wo: Tensor) -> Tensor:
     return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
 
 
-def init_gqa(gen: torch.Generator, cfg, dtype) -> dict:
+def init_gqa(gen: torch.Generator | None, cfg, dtype) -> dict:
     from repro_torch.models.common import dense_init
 
     d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head

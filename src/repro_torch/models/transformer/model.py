@@ -86,9 +86,9 @@ class LM(ParamTree):
         return getattr(self, f"stage{si}")
 
 
-def _init_block(gen: torch.Generator, cfg, dtype) -> dict:
+def _init_block(gen: torch.Generator | None, cfg, dtype) -> dict:
     d = cfg.d_model
-    dev = gen.device
+    dev = gen.device if gen is not None else torch.device("meta")
     return dict(
         attn=attn.init_gqa(gen, cfg, dtype),
         ffn=dict(
@@ -101,15 +101,22 @@ def _init_block(gen: torch.Generator, cfg, dtype) -> dict:
     )
 
 
-def init_lm(gen: torch.Generator, cfg) -> LM:
+def init_lm(gen: torch.Generator | None, cfg) -> LM:
     """Random weights drawn from ``gen`` on its device, with the reference's
-    distributions: embed N(0, 0.02^2), dense N(0, 1/d_in), norms 1."""
+    distributions: embed N(0, 0.02^2), dense N(0, 1/d_in), norms 1.  With
+    ``gen=None`` the same tree as ``meta`` tensors (shapes and dtypes only:
+    a dry-run's state)."""
     _check_supported(cfg)
     dtype = cm.dtype_of(cfg.param_dtype)
-    dev = gen.device
+    if gen is None:
+        dev = torch.device("meta")
+        embed = torch.empty((cfg.vocab, cfg.d_model), dtype=dtype, device=dev)
+    else:
+        dev = gen.device
+        embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev)
+                 * 0.02).to(dtype)
     top: dict[str, Tensor] = dict(
-        embed=(torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev)
-               * 0.02).to(dtype),
+        embed=embed,
         final_norm=torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     )
     if not cfg.tie_embeddings:

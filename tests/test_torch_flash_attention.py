@@ -110,8 +110,14 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     q, k, v = qkv()
     with pytest.raises(ValueError, match="contiguous"):
         t_ops._check(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, causal=True)
-    with pytest.raises(ValueError, match="no kernel"):
-        t_flash(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta tensors take the meta route (a dry-run's step): the output's
+    # shape and dtype, nothing computed and nothing launched
+    before = t_flash.launches
+    out = t_flash(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert (out.device.type, out.shape, out.dtype) == ("meta", q.shape, q.dtype)
+    assert t_flash.launches == before
+    with pytest.raises(ValueError, match="S == T"):
+        t_flash(*(x.to("meta") for x in qkv(S=3, T=9)))
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.core.ring", "repro_torch.configs.probesim",
                 "repro_torch.graph.io",
                 "repro_torch.examples.distributed_serve_demo",
-                "repro_torch.examples.dynamic_graph_serving"):
+                "repro_torch.examples.dynamic_graph_serving",
+                "repro_torch.roofline", "repro_torch.roofline.analysis",
+                "repro_torch.roofline.report", "repro_torch.launch.dryrun",
+                "repro_torch.configs.yi_34b", "repro_torch.configs.llama3_405b"):
         assert new in mods, new
     script = (
         "import sys\n"

@@ -89,15 +89,31 @@ Phases (any failure exits non-zero before the result line):
    launch counters read around that window (all 16 prefill launches on the
    tensor-core route); then kernel-off prefill and 64
    teacher-forced decode steps against the kernel-on forward must agree;
+   then ``moe_phase``: Qwen1.5-MoE-A2.7B (GQA, 60 experts top-4) and
+   DeepSeek-V2-Lite (MLA, 64 experts top-6, one dense layer first) at full
+   width and depth (random bf16 weights), through ``arch.build_with_cfg``:
+   flash_attention at Qwen's prefill shape against its plain version; per
+   config a 32,768-token prefill window (Qwen: 24 flash launches, all on
+   the tensor cores; DeepSeek: the plain ``sdpa`` with use_kernel=False,
+   since the kernel takes one head width and ``use_kernel=True`` raises
+   there, checked), the parameter count against ``params_dense`` plus the
+   norms, a profiled second prefill bitwise equal to the first (no atomics
+   in the combine) with the dropped assignments counted, the prefill under
+   the op counter, Qwen's kernel on against off in fp32 compute (and the
+   bf16 gap printed), 16 greedy decode steps over the 32,768 cache at the
+   largest batch up to 8 that fits (``decode_batch``), a profiled decode
+   step, and 32 teacher-forced decode steps against the forward on a copy
+   whose capacity factor drops nothing, in fp32 compute (the bf16 gap
+   printed: see ``MOE_TF_STEPS``);
 7. the roofline (``roofline_phase``): the dry-run's records
    (``repro_torch.launch.dryrun`` on ``meta``: the probesim config uncut
-   at 256 and 512 blocks, the ring at 256, the three dense LMs at
-   prefill_32k and decode_32k), counted in niced processes on the host
+   at 256 and 512 blocks, the ring at 256, the three dense LMs and the two
+   MoE configs at prefill_32k and decode_32k), counted in niced processes on the host
    from the start, each with its three terms and memory per block; the
    op counter (``repro_torch.roofline``) on the card around the
    production cut's steps (each also counted on ``meta``: equal FLOPs,
    bytes and collective bytes), a HepPh drain of 8 and tree query, and
-   the Llama prefill, each run's least time at most 105 % of its
+   the Llama, Qwen and DeepSeek prefills, each run's least time at most 105 % of its
    measured time; the kernel bounds at their known values (lane_probe
    142.4 MB, spmm_ell 18.56 MB).
 
@@ -3281,6 +3297,378 @@ def lm_phase(dev) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: MoE and MLA serving at full width
+# ---------------------------------------------------------------------------
+
+# the two MoE configs, Qwen first (its prefill runs the flash kernel)
+MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
+MOE_DECODE_MAX_B = 8  # the decode batch cut (Llama's): 128 -> at most 8
+MOE_MEM_SHARE = 0.85  # weights + decode cache + its transients under this share
+# teacher-forced decode steps against the forward.  In bf16 the forward and
+# the decode round the hidden states differently, and a top-k routing
+# decision that flips moves the logits past LM_TOL: the reference's own
+# SMOKE DeepSeek in bf16 with headroom gives 0.356 at max |logit| 4.66 (7.6 %)
+# on the CPU, 0.070 with its MoE layers made dense.  So the check runs in
+# fp32 compute over the bf16 weights, and the bf16 gap is printed.
+MOE_TF_STEPS = 32
+
+
+def decode_batch(cfg, s_max: int, weight_bytes: int) -> tuple[int, str]:
+    """The largest decode batch up to ``MOE_DECODE_MAX_B`` whose cache, and
+    the plain attention's fp32 copies of one layer's cache, fit beside the
+    weights in ``MOE_MEM_SHARE`` of the card; and the reckoning."""
+    import torch
+
+    L = cfg.n_layers
+    if cfg.attention == "mla":
+        width = cfg.kv_lora_rank + cfg.qk_rope_head_dim  # c_kv + k_rope
+        per_seq = L * s_max * width * 2
+        transient = s_max * width * 4 + 2 * cfg.n_heads * s_max * 4
+    else:
+        width = 2 * cfg.n_kv_heads * cfg.d_head  # k + v
+        per_seq = L * s_max * width * 2
+        transient = s_max * width * 4
+    total = torch.cuda.mem_get_info()[1]
+    room = MOE_MEM_SHARE * total - weight_bytes
+    b = int(min(MOE_DECODE_MAX_B, room // (per_seq + transient)))
+    require(b >= 1, f"{cfg.name}: no decode batch fits ({room / 1e9:.1f} GB room)")
+    why = (f"cache {per_seq / 1e9:.3f} GB + transient {transient / 1e9:.3f} GB a "
+           f"sequence, {room / 1e9:.1f} GB beside {weight_bytes / 1e9:.1f} GB of "
+           f"weights in {MOE_MEM_SHARE:.0%} of {total / 1e9:.1f} GB")
+    return b, why
+
+
+def moe_flash_shape(gen, dev, cfg, S: int) -> None:
+    """flash_attention at the Qwen prefill's shape (B 1, S = T, H = Hkv, dh
+    128, bf16, causal) against its plain version, timed beside the library."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, route
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.roofline.analysis import flash_work
+
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = flash_inputs(gen, dev, 1, S, S, H, Hkv, dh, torch.bfloat16)
+    require(route(q.dtype, dh) == "tensor_core", "the Qwen shape left the tensor cores")
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 3)
+    out = flash_attention(q, k, v, causal=True)
+    p_ms, ref = plain_ms(lambda: attention_ref(q, k, v, causal=True,
+                                               probs_dtype=torch.bfloat16))
+    err, widened = tc_close(out, ref, attention_ref(q, k, v.abs(), causal=True))
+    del ref
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+
+    lib_ms = time_ms(library, 3)
+    bound, by = bound_ms(flash_work(q.shape, k.shape, causal=True, dtype=q.dtype))
+    log(f"flash_attention at {cfg.name}'s prefill shape B=1 S=T={S} H={H} Hkv={Hkv} "
+        f"dh={dh} bf16 causal (tensor cores): max |diff| vs plain bf16-p {err:.3e}"
+        f"{' (tc_close widened)' if widened else ' (bf16_close)'}; kernel {ms:.3f} ms, "
+        f"plain {p_ms:.1f} ms, scaled_dot_product_attention {lib_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({by})")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+
+
+def teacher_forced(model, cfg, toks, use_kernel: bool, dev):
+    """``toks.shape[1]`` teacher-forced decode steps against ``lm_forward``
+    on the same tokens: (max |diff|, max(1, max |logit|), argmax agreement,
+    the forward's aux loss).  The forward runs the flash kernel when
+    ``use_kernel`` (one launch a layer, checked)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.transformer import model as M
+
+    B, T = toks.shape
+    small = M.init_cache(cfg, B, T, dev)
+    steps = []
+    for t in range(T):
+        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+        small, lg = M.lm_decode_step(model, small, toks[:, t], pos, cfg)
+        steps.append(lg)
+    before = flash_attention.launches
+    fwd, aux = M.lm_forward(model, toks, cfg, use_kernel=use_kernel)
+    require(flash_attention.launches == before + (cfg.n_layers if use_kernel else 0),
+            f"{cfg.name}: the forward's flash launches")
+    dec = torch.stack(steps, dim=1)
+    err = float((dec - fwd).abs().max())
+    same = float((dec.argmax(dim=-1) == fwd.argmax(dim=-1)).float().mean())
+    return err, max(1.0, float(fwd.abs().max())), same, aux
+
+
+def kernel_on_off(arch_id, cfg, shape, model, tokens, logits, dev) -> None:
+    """The prefill with the flash kernel against the plain chunked ``sdpa``.
+    In bf16 the two round the hidden states differently, a top-k routing
+    decision that flips moves the last token's logits past LM_TOL, and at
+    the published capacity a flip also moves which assignments are dropped
+    (see MOE_TF_STEPS): so the check runs in fp32 compute over the same
+    bf16 weights (the kernel's CUDA-core route, one launch a layer), and
+    the bf16 gap (the tensor-core route's ``logits``) is printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    exact = dataclasses.replace(cfg, compute_dtype="float32")
+
+    def prefill(c, use_kernel):
+        bundle = arch.build_with_cfg(arch_id, c, shape, use_kernel=use_kernel, device=dev)
+        return bundle.step(model, dict(tokens=tokens))
+
+    before, tc = flash_attention.launches, flash_attention.tc_launches
+    on32 = prefill(exact, True)
+    require(flash_attention.launches == before + cfg.n_layers
+            and flash_attention.tc_launches == tc,
+            f"{arch_id}: the fp32 prefill's flash launches")
+    p_ms, off32 = plain_ms(lambda: prefill(exact, False))
+    err, _ = logits_agree(on32, off32, f"{arch_id} prefill kernel-on vs off (fp32 compute)")
+    require(int(on32.argmax()) == int(off32.argmax()),
+            f"{arch_id}: kernel on and off pick different next tokens (fp32 compute)")
+    log(f"  prefill kernel on vs off in fp32 compute over the bf16 weights: max |diff| "
+        f"{err:.3e} (max |logit| {float(off32.abs().max()):.3f}), argmax "
+        f"{int(on32.argmax())} vs {int(off32.argmax())}; kernel-off {p_ms / 1e3:.3f} s")
+    del on32, off32
+    p_ms, off = plain_ms(lambda: prefill(cfg, False))
+    err = float((logits - off).abs().max())
+    log(f"  the same in bf16 compute, the tensor-core route against the plain path "
+        f"(printed, not checked): max |diff| {err:.3e} ({err / float(off.abs().max()):.2%} "
+        f"of max |logit|), argmax {int(logits.argmax())} vs {int(off.argmax())}; "
+        f"kernel-off {p_ms / 1e3:.3f} s")
+
+
+def moe_cell(arch_id: str, dev, gen) -> dict:
+    """One MoE config at full width and depth through ``arch.build_with_cfg``:
+    the prefill window and the decode window (counters read around each),
+    the checks, and the timings.  Returns the kernels' launches of its
+    windows."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.probe_push.ops import probe_push
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer import moe as moe_mod
+
+    counters = (flash_attention, lane_probe_level, spmm_ell_padded, probe_push)
+    names = ("flash_attention", "lane_probe", "spmm_ell", "probe_push")
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+        flash_attention.tc_launches = 0
+
+    def read():
+        return dict(zip(names, (fn.launches for fn in counters)))
+
+    cfg = get_config(arch_id)
+    mla = cfg.attention == "mla"
+    m = cfg.moe
+    shapes = {s.name: s for s in shapes_for(arch_id)}
+    pre = arch.build_with_cfg(arch_id, cfg, cut(shapes["prefill_32k"], global_batch=1),
+                              use_kernel=not mla, device=dev)
+    S = pre.shape.dims["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    (model,) = pre.init(gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_norms = (2 * cfg.n_layers + 1) * cfg.d_model  # not in params_dense
+    require(n_params == cfg.params_dense + n_norms,
+            f"{arch_id}: {n_params} params, config says {cfg.params_dense} + "
+            f"{n_norms} norms")
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    log(f"{arch_id}: {n_params} params ({weight_bytes / 1e9:.2f} GB), "
+        f"{cfg.attention} attention, {m.n_routed} experts top-{m.top_k} "
+        f"(d_ff {m.d_ff_expert}, shared {m.d_ff_shared or m.n_shared * m.d_ff_expert}, "
+        f"{m.first_dense_layers} dense layers first), capacity factor "
+        f"{m.capacity_factor}; prefill 1 x {S} tokens "
+        + ("with use_kernel=False: the flash kernel takes one head width and MLA's "
+           f"q / k are {cfg.qk_nope_head_dim + cfg.qk_rope_head_dim} wide, v "
+           f"{cfg.v_head_dim} (the reference's wrapper raises there too)"
+           if mla else "with the flash kernel"))
+    launches = dict.fromkeys(names, 0)
+    with torch.inference_mode():
+        pre.step(model, dict(tokens=tokens[:, :1024]))  # warm the libraries
+        if mla:
+            on = arch.build_with_cfg(arch_id, cfg, pre.shape, use_kernel=True, device=dev)
+            try:
+                on.step(model, dict(tokens=tokens[:, :1024]))
+            except ValueError as e:
+                log(f"  use_kernel=True refused on the card: {e}")
+            else:
+                require(False, f"{arch_id}: use_kernel=True ran MLA's prefill")
+        torch.cuda.synchronize()
+
+        # --- the prefill window -------------------------------------------
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = pre.step(model, dict(tokens=tokens))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got = read()
+        tc = flash_attention.tc_launches
+        prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+        # ---------------------------------------------------------------------
+        for k, v in got.items():
+            launches[k] += v
+        require(logits.shape == (1, cfg.vocab) and logits.dtype == torch.float32,
+                f"{arch_id} prefill logits {tuple(logits.shape)} {logits.dtype}")
+        require(bool(torch.isfinite(logits).all()), f"{arch_id} prefill logits not finite")
+        want = 0 if mla else cfg.n_layers
+        require(got["flash_attention"] == want and tc == want,
+                f"{arch_id} prefill launched flash {got['flash_attention']} times "
+                f"({tc} on the tensor cores), want {want}")
+        require(sum(got.values()) == got["flash_attention"],
+                f"{arch_id} prefill launched another kernel: {got}")
+
+        # the same prefill again under the profiler: bitwise equal (the
+        # combine has no atomics), with each MoE layer's dropped assignments
+        # read off its dispatch
+        drops, again = [], []
+        dispatch = moe_mod.dispatch
+
+        def counting(top_i, top_p, E, C):
+            out = dispatch(top_i, top_p, E, C)
+            drops.append((out[2] == E * C).sum())
+            return out
+
+        moe_mod.dispatch = counting
+        try:
+            profile(f"{arch_id} prefill of {S} tokens",
+                    lambda: again.append(pre.step(model, dict(tokens=tokens))))
+        finally:
+            moe_mod.dispatch = dispatch
+        require(torch.equal(logits, again[0]),
+                f"{arch_id}: two prefills differ by "
+                f"{float((logits - again[0]).abs().max())}")
+        moe_layers = cfg.n_layers - m.first_dense_layers
+        require(len(drops) == moe_layers, f"{len(drops)} MoE dispatches, want {moe_layers}")
+        per_layer = torch.stack(drops).float() / (S * m.top_k)
+        log(f"  prefill {S} tokens in {prefill_s:.3f} s ({S / prefill_s:.1f} tokens/s), "
+            f"peak {prefill_peak:.2f} GB; launches {got} ({tc} on the tensor cores); "
+            f"the profiled prefill bitwise equal; dropped at capacity factor "
+            f"{m.capacity_factor} (C {moe_mod._capacity(S, cfg)}): "
+            f"{float(per_layer.mean()):.4%} of the assignments (layers "
+            f"{float(per_layer.min()):.4%} to {float(per_layer.max()):.4%})")
+        count_on_card(f"{arch_id} prefill of {S} tokens",
+                      lambda: pre.step(model, dict(tokens=tokens)), prefill_s * 1e3,
+                      model_flops=pre.model_flops())
+        if not mla:
+            kernel_on_off(arch_id, cfg, pre.shape, model, tokens, logits, dev)
+        del logits, again
+        torch.cuda.empty_cache()
+
+        # --- the decode window --------------------------------------------
+        Sd = shapes["decode_32k"].dims["seq_len"]
+        Bd, why = decode_batch(cfg, Sd, weight_bytes)
+        dec = arch.build_with_cfg(arch_id, cfg, cut(shapes["decode_32k"], global_batch=Bd),
+                                  device=dev)
+        caches = M.init_cache(cfg, Bd, Sd, dev)
+        cache_gb = sum(t.numel() * t.element_size() for c in caches
+                       for t in c.values()) / 1e9
+        log(f"  decode batch {Bd} (of {shapes['decode_32k'].dims['global_batch']}): "
+            f"{why}; cache {cache_gb:.2f} GB")
+        tok = torch.randint(0, cfg.vocab, (Bd,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for t in range(16):
+            pos = torch.full((Bd,), t, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            caches, dlog = dec.step(model, caches, dict(tokens=tok, positions=pos))
+            tok = dlog.argmax(dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            require(bool(torch.isfinite(dlog).all()), f"{arch_id} decode step {t} logits")
+        got = read()
+        decode_peak = torch.cuda.max_memory_allocated() / 1e9
+        # ---------------------------------------------------------------------
+        for k, v in got.items():
+            launches[k] += v
+        require(sum(got.values()) == 0, f"{arch_id} decode launched a kernel: {got}")
+        for layer in next(iter(caches[0].values())):  # [B, S, ...] each
+            rest = tuple(range(2, layer.dim()))
+            require(not bool(layer[:, 16:].any())
+                    and layer[:, :16].abs().amax(dim=rest).min() > 0,
+                    f"{arch_id} decode wrote the cache outside positions 0..15")
+        dec_ms = sum(step_s[1:]) / len(step_s[1:]) * 1e3
+        log(f"  decode B={Bd} over the {Sd} cache: {dec_ms:.2f} ms per step (steps "
+            f"2-16; step 1 {step_s[0] * 1e3:.2f} ms), {Bd / dec_ms * 1e3:.1f} tokens/s, "
+            f"peak {decode_peak:.2f} GB")
+        pos = torch.full((Bd,), 16, dtype=torch.int32, device=dev)
+        profile(f"{arch_id} decode step", lambda: dec.step(
+            model, caches, dict(tokens=tok, positions=pos)))
+        del caches
+        torch.cuda.empty_cache()
+
+        # --- teacher-forced decode against the forward, with headroom -------
+        # at the published capacity the forward (T = 128) and a decode step
+        # (T = 2) drop different assignments; at E / K none is dropped.  In
+        # bf16 the two paths round h differently and some top-k routing
+        # decisions flip (the reference does the same: see MOE_TF_STEPS), so
+        # the check runs in fp32 compute over the same bf16 weights, and the
+        # bf16 gap is printed
+        head = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=float(math.ceil(m.n_routed / m.top_k))))
+        toks = torch.randint(0, cfg.vocab, (2, MOE_TF_STEPS), generator=gen,
+                             device=dev, dtype=torch.int32)
+        exact = dataclasses.replace(head, compute_dtype="float32")
+        err, scale, same, aux = teacher_forced(model, exact, toks, not mla, dev)
+        require(err <= LM_TOL * scale,
+                f"{arch_id} decode vs forward (fp32 compute): logits differ by {err} "
+                f"(scale {scale})")
+        require(bool(torch.isfinite(aux)) and float(aux) > 0,
+                f"{arch_id}: aux loss {float(aux)}")
+        log(f"  decode vs forward (2 x {MOE_TF_STEPS} teacher-forced steps, capacity "
+            f"factor {head.moe.capacity_factor}, fp32 compute over the bf16 weights): "
+            f"max |diff| {err:.3e} (max |logit| {scale:.3f}), argmax equal at "
+            f"{same:.1%}; aux loss {float(aux):.6f}")
+        err, scale, same, _ = teacher_forced(model, head, toks, not mla, dev)
+        log(f"  the same in bf16 compute (printed, not checked): max |diff| {err:.3e} "
+            f"({err / scale:.2%} of max |logit| {scale:.3f}), argmax equal at {same:.1%}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(dev) -> dict:
+    """Qwen1.5-MoE-A2.7B and DeepSeek-V2-Lite at full width and depth (random
+    bf16 weights from a seeded generator); returns the launches of their
+    prefill and decode windows."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    moe_flash_shape(gen, dev, get_config(MOE_ARCHS[0]), 32768)
+    launches = {}
+    for arch_id in MOE_ARCHS:
+        for k, v in moe_cell(arch_id, dev, gen).items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"moe phase: {time.perf_counter() - t_phase:.1f} s; launches {launches}; "
+        f"card: {card()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The roofline: the dry-run on the host, the op counter on the card
 # ---------------------------------------------------------------------------
 
@@ -3297,7 +3685,8 @@ DRYRUN_CELLS = (
     ("probesim", "serve_online", "both", ()),
     ("probesim", "serve_batch", "single", ("--set", "push_mode=ring", "--tag", "ring")),
     ("probesim", "serve_online", "single", ("--set", "push_mode=ring", "--tag", "ring")),
-) + tuple((a, s, "both", ()) for a in ("llama3.2-1b", "yi-34b", "llama3-405b")
+) + tuple((a, s, "both", ()) for a in ("llama3.2-1b", "yi-34b", "llama3-405b",
+                                         "qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
           for s in ("prefill_32k", "decode_32k"))
 DRYRUN_TIMEOUT_S = 900
 
@@ -3548,6 +3937,7 @@ def run(procs, out_dir: str) -> int:
         dyn_launches[k] += v
     stream_launches = stream_phase(dev)
     lm_launches = lm_phase(dev)
+    moe_launches = moe_phase(dev)
     roofline_phase(procs, out_dir, rows)
 
     # each kernel's launches in the windows of the paths that run it; probe_push
@@ -3556,7 +3946,8 @@ def run(procs, out_dir: str) -> int:
         row["launches"] = (launches[name] + acc_launches[name]
                            + svc_launches[name] + shard_launches[name]
                            + prod_launches[name] + dyn_launches[name]
-                           + stream_launches[name] + lm_launches[name])
+                           + stream_launches[name] + lm_launches[name]
+                           + moe_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

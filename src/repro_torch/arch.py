@@ -14,11 +14,13 @@
   ``step(graph, batch)`` -> ``(topk_idx [Q, k], topk_val [Q, k])``);
 * ``model_flops()`` -> MODEL_FLOPS of one step.
 
-The LM family's serving shapes and the ProbeSim family (the paper's own
-config, ``probesim``) are ported.  Training, the GNN and recsys families
+The LM family's serving shapes (dense GQA, and the MoE / MLA configs
+``deepseek-v2-lite-16b`` and ``qwen2-moe-a2.7b``) and the ProbeSim family
+(the paper's own config, ``probesim``) are ported.  Training, the GNN and recsys families
 and the sharding specs wait (ROADMAP queue 1 item 14).  The port runs on
 the card unless asked otherwise: ``device`` defaults to "cuda" and
-``use_kernel`` to True (the flash kernel on prefill).  The ProbeSim
+``use_kernel`` to True (the flash kernel on prefill; MLA's prefill needs
+``use_kernel=False``: the kernel refuses its head widths).  The ProbeSim
 bundles run on ``mesh`` (a ``ShardMesh``), by default one block on
 ``device``: the port's form of the reference's ambient mesh.
 """

@@ -4,8 +4,8 @@
 Each ported architecture registers one module in this package exposing
 ``CONFIG`` (full scale, the published numbers) and ``SMOKE`` (reduced,
 CPU-runnable).  The dataclasses are the reference's, field for field, so a
-config compares equal across the two packages.  The dense LM configs and
-ProbeSim are ported; the MoE / MLA, GNN and recsys configs wait for their
+config compares equal across the two packages.  The LM configs (dense, MoE
+and MLA) and ProbeSim are ported; the GNN and recsys configs wait for their
 slices (ROADMAP queue 1 item 14), but ``ARCH_IDS``, every family's shapes
 and ``family_of`` cover them, so a dry-run can name each cell it skips.
 """
@@ -197,6 +197,8 @@ ARCH_IDS = [
 ]
 
 _MODULE_OF = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "llama3-405b": "llama3_405b",
     "yi-34b": "yi_34b",
     "llama3.2-1b": "llama3_2_1b",
@@ -204,13 +206,11 @@ _MODULE_OF = {
 }
 
 NOT_PORTED = (
-    "deepseek-v2-lite-16b", "qwen2-moe-a2.7b",
     "gin-tu", "gcn-cora", "gatedgcn", "nequip", "wide-deep", "gat-bonus",
 )
 
 # the family of each config not ported yet (the reference's ``cfg.family``)
 _FAMILY_OF_UNPORTED = {
-    "deepseek-v2-lite-16b": "lm", "qwen2-moe-a2.7b": "lm",
     "gin-tu": "gnn", "gcn-cora": "gnn", "gatedgcn": "gnn", "nequip": "gnn",
     "gat-bonus": "gnn", "wide-deep": "recsys",
 }

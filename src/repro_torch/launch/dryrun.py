@@ -15,8 +15,12 @@ Unlike the reference there is no depth-delta extrapolation (XLA's
 ``cost_analysis`` counts a ``scan`` body once; the counter sees every
 layer) and no compile, so ``--skip-full-compile`` has no counterpart.
 
-A cell the port does not have yet (the LM ``train_4k``, the MoE and MLA
-archs, the GNN archs and ``wide-deep``) writes ``{arch}__{shape}__skip.json``
+An LM cell counts the flash kernel where its prefill runs it; MLA's
+prefill runs the plain ``sdpa`` (the kernel refuses its head widths, ROADMAP
+queue 1 item 14), so its bundle is built with ``use_kernel=False``.
+
+A cell the port does not have yet (the LM ``train_4k``, the GNN archs and
+``wide-deep``) writes ``{arch}__{shape}__skip.json``
 with the ``NotImplementedError``'s words (they name ROADMAP queue 1 item
 14), as does an inapplicable cell (``arch.is_applicable``) unless
 ``--include-skipped``.  A cell that fails writes
@@ -184,8 +188,9 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *,
         record["overrides"] = {k: str(v) for k, v in overrides.items()}
     shape = next(s for s in shapes_for(arch_id) if s.name == shape_name)
     device = mesh.home if cfg.family == "probesim" else META
+    use_kernel = not (cfg.family == "lm" and cfg.attention == "mla")
     bundle = arch_mod.build_with_cfg(arch_id, cfg, shape, device=device,
-                                     mesh=mesh)
+                                     mesh=mesh, use_kernel=use_kernel)
     state = abstract_state(bundle)
     t0 = time.perf_counter()
     rep, counter = count_step(bundle, state, abstract_inputs(bundle, device),

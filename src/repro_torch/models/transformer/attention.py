@@ -1,13 +1,24 @@
-"""GQA attention for prefill and decode (port of ``repro.models.transformer.attention``).
+"""Attention for prefill and decode: GQA (llama / yi / qwen) and MLA
+(DeepSeek-V2); port of ``repro.models.transformer.attention``.
 
-Decode is cache-resident: k/v are cached per kv head, ``[B, S_max, Hkv,
-dh]``.  Unlike the reference, which returns a new cache, ``gqa_decode``
-writes the new position into the cache in place: the ``decode_32k`` cache
-of Llama-3.2-1B is 8.6 GB, and a copy per layer per step would double it.
+Decode is cache-resident:
+
+* GQA caches k/v per kv head, ``[B, S_max, Hkv, dh]``;
+* MLA caches the compressed latent ``c_kv`` ``[B, S_max, r]`` and the shared
+  rope key ``[B, S_max, d_rope]``, and decodes in the absorbed form (q
+  projected into the latent space; values expanded only after the
+  attention-weighted latent sum).
+
+Unlike the reference, which returns a new cache, ``gqa_decode`` and
+``mla_decode`` write the new position into the cache in place: the
+``decode_32k`` cache of Llama-3.2-1B is 8.6 GB, and a copy per layer per
+step would double it.
 
 The flash-attention kernel is switchable via ``use_kernel`` (prefill
-shapes); the plain PyTorch path is the oracle.  MLA waits for a later slice
-(ROADMAP queue 1 item 14).
+shapes); the plain PyTorch path is the oracle.  The kernel takes v of q's
+head width only, so MLA's prefill (q / k of width ``dn + dr``, v of ``dv``)
+runs the plain path and ``sdpa`` refuses the kernel there, as the
+reference's wrapper does (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -40,11 +51,22 @@ def sdpa(
     one after another, so the peak logits buffer is [*, chunk_q, T] instead
     of [*, S, T] (a 32k prefill would otherwise need 32768^2 x heads x 4 B).
     ``use_kernel`` sends causal prefill (``causal_offset == 0``, S > 1) to
-    ``kernels.flash_attention``; decode (S == 1, ``kv_len``) stays plain."""
+    ``kernels.flash_attention``; decode (S == 1, ``kv_len``) stays plain.
+    ``use_kernel`` with v's width other than q's, or above the kernel's
+    ``MAX_HEAD_DIM``, raises ``ValueError`` on every device."""
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    if use_kernel:
+        from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM
+
+        dv = v.shape[-1]
+        if dv != dh or dv > MAX_HEAD_DIM:
+            raise ValueError(
+                f"sdpa: the flash kernel takes q / k / v of one head width up to "
+                f"{MAX_HEAD_DIM}, got q / k {dh} and v {dv} (MLA's widths run the "
+                "plain path: use_kernel=False; ROADMAP queue 1 item 14)")
     if use_kernel and causal_offset is not None and S > 1:
         if causal_offset != 0 or kv_len is not None:
             raise ValueError("the flash kernel takes causal_offset 0 and no kv_len")
@@ -156,3 +178,116 @@ def gqa_decode(
     cache["v"][bidx, pos] = v_new[:, 0]
     o = sdpa(q, cache["k"], cache["v"], causal_offset=None, kv_len=position + 1)
     return cache, _out(o, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator | None, cfg, dtype) -> dict:
+    """The kv down-projection ``w_dkv [d, r]``, the shared rope key ``w_kr
+    [d, dr]``, the up-projections ``w_uk [r, H, dn]`` / ``w_uv [r, H, dv]``,
+    ``wo [H, dv, d]``, and q: ``wq [d, H, dn + dr]``, or with ``q_lora_rank``
+    ``w_dq [d, q_lora]`` and ``w_uq [q_lora, H, dn + dr]``."""
+    from repro_torch.models.common import dense_init
+
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    p = dict(
+        w_dkv=dense_init(gen, d, r, dtype),
+        w_kr=dense_init(gen, d, dr, dtype),
+        w_uk=dense_init(gen, r, H * dn, dtype).reshape(r, H, dn),
+        w_uv=dense_init(gen, r, H * dv, dtype).reshape(r, H, dv),
+        wo=dense_init(gen, H * dv, d, dtype).reshape(H, dv, d),
+    )
+    if cfg.q_lora_rank:
+        p["w_dq"] = dense_init(gen, d, cfg.q_lora_rank, dtype)
+        p["w_uq"] = dense_init(gen, cfg.q_lora_rank, H * (dn + dr), dtype).reshape(
+            cfg.q_lora_rank, H, dn + dr)
+    else:
+        p["wq"] = dense_init(gen, d, H * (dn + dr), dtype).reshape(d, H, dn + dr)
+    return p
+
+
+def _mla_q(p: dict, x: Tensor, positions: Tensor, cfg) -> tuple[Tensor, Tensor]:
+    """(q_nope [B, S, H, dn], q_rope [B, S, H, dr] with rope applied)."""
+    dn = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank:
+        q = _proj(x @ p["w_dq"], p["w_uq"])
+    else:
+        q = _proj(x, p["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _rope_key(p: dict, x: Tensor, positions: Tensor, cfg) -> Tensor:
+    """The rope key shared by the heads, [B, S, 1, dr]."""
+    return apply_rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)
+
+
+def mla_forward(
+    p: dict,
+    x: Tensor,  # [B, S, D]
+    positions: Tensor,  # [B, S]
+    cfg,
+    *,
+    use_kernel: bool = False,
+) -> Tensor:
+    """Prefill MLA: the latent is expanded to per-head k and v, and the
+    plain ``sdpa`` runs with q / k of width dn + dr and v of width dv
+    (``use_kernel=True`` raises there: the kernel takes one width)."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv = x @ p["w_dkv"]  # [B, S, r]
+    k_rope = _rope_key(p, x, positions, cfg)
+    k_nope = _proj(c_kv, p["w_uk"])
+    v = _proj(c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], dr)], dim=-1)
+    o = sdpa(q, k, v, causal_offset=0, scale=1.0 / math.sqrt(dn + dr),
+             use_kernel=use_kernel, probs_dtype=_probs_dtype(cfg))
+    return _out(o, p["wo"])
+
+
+def mla_init_cache(cfg, batch: int, s_max: int, dtype, device) -> dict:
+    return dict(
+        c_kv=torch.zeros((batch, s_max, cfg.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, s_max, cfg.qk_rope_head_dim), dtype=dtype,
+                           device=device),
+    )
+
+
+def mla_decode(
+    p: dict,
+    cache: dict,
+    x: Tensor,  # [B, 1, D]
+    position: Tensor,  # [B]
+    cfg,
+) -> tuple[dict, Tensor]:
+    """Absorbed-form MLA decode; writes ``c_kv`` / ``k_rope`` at ``position``
+    into ``cache`` in place and returns ``(cache, out [B, 1, D])``.
+
+    score[t] = <W_uk^T q_nope, c_t> + <q_rope, k_rope_t>, in fp32
+    out      = W_uv (sum_t p_t c_t)
+    so the per-step work and cache traffic scale with r + dr, not H * dh."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x, position[:, None], cfg)  # [B, 1, H, *]
+    bidx = torch.arange(B, device=x.device)
+    pos = position.long()
+    cache["c_kv"][bidx, pos] = (x @ p["w_dkv"])[:, 0]
+    cache["k_rope"][bidx, pos] = _rope_key(p, x, position[:, None], cfg)[:, 0, 0]
+    c_kv = cache["c_kv"].float()  # [B, T, r]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"])  # [B, H, r]
+    scores = torch.bmm(q_lat.float(), c_kv.transpose(1, 2))
+    scores += torch.bmm(q_rope[:, 0].float(), cache["k_rope"].float().transpose(1, 2))
+    scores *= 1.0 / math.sqrt(dn + dr)
+    T = c_kv.shape[1]
+    valid = torch.arange(T, device=x.device)[None, :] < (position + 1)[:, None]
+    scores.masked_fill_(~valid[:, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.bmm(probs, c_kv)  # [B, H, r]
+    o = torch.einsum("bhr,rhk->bhk", o_lat, p["w_uv"].float())
+    out = _out(o.to(x.dtype), p["wo"])[:, None]
+    return cache, out

@@ -23,14 +23,18 @@ The rules (one op at a time):
   (``tensor_core_flops``).  Data movement (copies, casts, ``cat``, fills,
   gathers) counts none.  Every other op counts one operation per element
   of its largest tensor: per output element for an elementwise op, per
-  input element for a reduction.
+  input element for a reduction.  Two ops of the MoE dispatch compare an element
+  more than once: ``sort`` counts ``n * ceil(log2 n)`` comparisons per
+  slice of n along its dimension, ``searchsorted`` ``ceil(log2 (m + 1))``
+  per value searched in m boundaries.
 * **Bytes.** Each input read once, each output written once (an in-place
   op reads and writes its target); a broadcast input counts its distinct
   elements.  Index ops count the rows they touch, not the whole tensor:
   a gather (``index``, ``index_select``, ``gather``, ``embedding``) reads
   as many elements as it writes; ``index_add_`` and ``index_put_`` read
   their sources and indices and read-modify-write (or, without
-  accumulation, write) the addressed elements.  Views, metadata ops,
+  accumulation, write) the addressed elements; a ``scatter`` without a
+  reduction reads its index and source and writes as many elements.  Views, metadata ops,
   allocations without writes (``empty``) and a ``.to`` that returns its
   input count nothing.
 * **Kernels.** The hand-written kernels' public ops (``lane_probe_level``,
@@ -266,6 +270,23 @@ def op_work(func, args, kwargs, out, ins=None, outs=None) -> Work:
         rmw = source.numel() * self_.element_size() * 2
         return Work(flops=source.numel(),
                     bytes=_nbytes(index) + _nbytes(source) + rmw)
+    if name in ("scatter", "scatter_") and len(args) == 4 and not kwargs:
+        index, src = args[2], args[3]
+        if isinstance(src, Tensor):
+            return Work(bytes=_nbytes(index) + 2 * _nbytes(src))
+    if name == "sort":
+        t = args[0]
+        # sort(self, dim, descending) or sort.stable(self, *, stable, dim, ...)
+        dim = args[1] if len(args) > 1 else kwargs.get("dim", -1)
+        n = t.shape[dim] if t.dim() else 1
+        nbytes = sum(_nbytes(x) for x in ins) + sum(_nbytes(x) for x in outs)
+        return Work(flops=t.numel() * max(1, math.ceil(math.log2(max(n, 2)))),
+                    bytes=nbytes)
+    if name == "searchsorted":
+        bounds, values = args[0], args[1]
+        m = bounds.shape[-1]
+        nbytes = sum(_nbytes(x) for x in ins) + sum(_nbytes(x) for x in outs)
+        return Work(flops=values.numel() * math.ceil(math.log2(m + 1)), bytes=nbytes)
     if name in ("index_put_", "index_put", "_index_put_impl_"):
         self_, indices, values = args[0], args[1], args[2]
         acc = bool(args[3]) if len(args) > 3 else bool(kwargs.get("accumulate", False))

@@ -28,7 +28,10 @@ from repro_torch.core import probe_random as tpr
 from repro_torch.core import tsf as ttsf
 from repro_torch.core.params import abs_error_bound, make_params
 from repro_torch.core.probesim import single_source
-from torch_port_helpers import port_handle, needs_cuda
+from torch_port_helpers import needs_cuda, one_thread, port_handle
+
+# a file of many small CPU ops: one intra-op thread beside the other workers
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SQRT_C = float(np.sqrt(0.6))
 

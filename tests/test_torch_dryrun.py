@@ -45,6 +45,7 @@ from repro_torch.graph import powerlaw_graph
 from repro_torch.launch.mesh import ShardMesh
 from repro_torch.models.common import count_params
 from repro_torch.models.transformer import model as TM
+from torch_port_helpers import one_thread  # noqa: F401  (a fixture)
 
 CPU = "cpu"
 
@@ -141,17 +142,6 @@ def test_single_source_simple_equals_repros_rules(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture
-def one_thread():
-    """The CPU steps here are thousands of small ops: with torch's thread
-    pool beside other busy processes each op waits on its threads, so run
-    them on one (the counts do not depend on it)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _probesim(mode, s, dev):
     cfg = dataclasses.replace(TCB.get_config("probesim", smoke=True), push_mode=mode)
     shape = TA._shrink_shape(cfg, TCB.shapes_for("probesim")[0])
@@ -237,7 +227,7 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
     out = str(tmp_path)
     D.main(["--arch", "llama3.2-1b", "--shape", "prefill_32k", "--mesh", "both",
             "--out", out])
-    for arch, shape in (("yi-34b", "train_4k"), ("deepseek-v2-lite-16b", "prefill_32k"),
+    for arch, shape in (("yi-34b", "train_4k"), ("deepseek-v2-lite-16b", "train_4k"),
                         ("gin-tu", "molecule"), ("llama3-405b", "long_500k")):
         D.main(["--arch", arch, "--shape", shape, "--out", out])
     with pytest.raises(SystemExit, match="1 dry-run cells failed"):
@@ -245,7 +235,7 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
                 "--tag", "bad", "--out", out])
     names = sorted(p.name for p in tmp_path.iterdir())
     assert names == [
-        "deepseek-v2-lite-16b__prefill_32k__skip.json", "gin-tu__molecule__skip.json",
+        "deepseek-v2-lite-16b__train_4k__skip.json", "gin-tu__molecule__skip.json",
         "llama3-405b__long_500k__skip.json",
         "llama3.2-1b__prefill_32k__multi.json",
         "llama3.2-1b__prefill_32k__single.json",

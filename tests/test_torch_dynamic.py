@@ -27,7 +27,10 @@ from repro_torch.core import make_params, multi_source
 from repro_torch.core.epoch import epoch_step
 from repro_torch.graph.structs import check_coo_prefix, check_live_prefix
 from repro_torch.kernels import ell_plan
-from torch_port_helpers import CPU, jax_uniforms, needs_cuda, port_handle
+from torch_port_helpers import CPU, jax_uniforms, needs_cuda, one_thread, port_handle
+
+# a file of many small CPU ops: one intra-op thread beside the other workers
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _jax_pair(src, dst, n, *, capacity=None, k_max=None):

@@ -52,7 +52,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.examples.dynamic_graph_serving",
                 "repro_torch.roofline", "repro_torch.roofline.analysis",
                 "repro_torch.roofline.report", "repro_torch.launch.dryrun",
-                "repro_torch.configs.yi_34b", "repro_torch.configs.llama3_405b"):
+                "repro_torch.configs.yi_34b", "repro_torch.configs.llama3_405b",
+                "repro_torch.models.transformer.moe",
+                "repro_torch.configs.deepseek_v2_lite_16b",
+                "repro_torch.configs.qwen2_moe_a2_7b"):
         assert new in mods, new
     script = (
         "import sys\n"

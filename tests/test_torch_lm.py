@@ -26,6 +26,7 @@ from repro_torch import arch as t_arch
 from repro_torch.configs import base as t_base
 from repro_torch.configs import llama3_2_1b as t_llama
 from repro_torch.models.transformer import model as TM
+from torch_port_helpers import close_scaled, int_tokens, lm_pair, port_lm_cfg
 
 CPU = "cpu"
 FP32_TOL = 1e-4
@@ -39,31 +40,8 @@ TINY_GQA = JConfig(
 CONFIGS = {"tiny_gqa": TINY_GQA, "llama_smoke": j_llama.SMOKE}
 
 
-def port_cfg(jcfg):
-    """The port's TransformerConfig with the same fields."""
-    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    assert fields["moe"] is None
-    return t_base.TransformerConfig(**fields)
-
-
 def numpy_tree(params):
     return jax.tree_util.tree_map(np.asarray, params)
-
-
-def _model(jcfg, seed=0):
-    params = JM.init_lm(jax.random.key(seed), jcfg)
-    tcfg = port_cfg(jcfg)
-    return params, TM.lm_from_params(numpy_tree(params), tcfg, device=CPU), tcfg
-
-
-def _tokens(seed, shape, vocab):
-    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
-
-
-def _close(t_out, j_out, tol):
-    j = np.asarray(j_out, np.float32)
-    scale = max(1.0, float(np.abs(j).max()))
-    np.testing.assert_allclose(t_out.float().numpy(), j, atol=tol * scale, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +62,14 @@ def test_llama_configs_pinned_to_repro(which):
 
 def test_unported_configs_and_kinds_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        t_base.get_config("deepseek-v2-lite-16b")
+        t_base.get_config("gin-tu")
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         t_arch.build("llama3.2-1b", "train_4k", smoke=True, device=CPU)
-    moe = dataclasses.replace(port_cfg(TINY_GQA), moe=t_base.MoEConfig(4, 2, 32))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TM.init_lm(torch.Generator().manual_seed(0), moe)
-    mla = dataclasses.replace(port_cfg(TINY_GQA), attention="mla")
-    with pytest.raises(NotImplementedError, match="mla"):
-        TM.init_cache(mla, 1, 4, CPU)
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        t_arch.build("qwen2-moe-a2.7b", "train_4k", smoke=True, device=CPU)
+    other = dataclasses.replace(port_lm_cfg(TINY_GQA), attention="linear")
+    with pytest.raises(NotImplementedError, match="linear attention"):
+        TM.init_cache(other, 1, 4, CPU)
 
 
 def stacked(model, tcfg) -> dict:
@@ -114,7 +91,7 @@ def test_init_lm_layout_matches_repro(name):
     """The converter copies the reference's pytree exactly, and the port's
     own init draws leaves of the same shapes and distributions."""
     jcfg = CONFIGS[name]
-    params, model, tcfg = _model(jcfg)
+    params, model, tcfg = lm_pair(jcfg)
     ref = numpy_tree(params)
     conv = stacked(model, tcfg)
     mine = stacked(TM.init_lm(torch.Generator().manual_seed(0), tcfg), tcfg)
@@ -137,59 +114,59 @@ def test_init_lm_layout_matches_repro(name):
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_lm_forward_matches_repro(name, use_kernel):
     jcfg = CONFIGS[name]
-    params, model, tcfg = _model(jcfg, seed=1)
-    toks = _tokens(2, (2, 24), jcfg.vocab)
+    params, model, tcfg = lm_pair(jcfg, seed=1)
+    toks = int_tokens(2, (2, 24), jcfg.vocab)
     want, _ = JM.lm_forward(params, jnp.asarray(toks), jcfg)
     got, aux = TM.lm_forward(model, torch.from_numpy(toks), tcfg, use_kernel=use_kernel)
     assert got.dtype == torch.float32 and got.shape == (2, 24, jcfg.vocab)
     assert float(aux) == 0.0
-    _close(got, want, FP32_TOL)
+    close_scaled(got, want, FP32_TOL)
     last, _ = TM.lm_forward(model, torch.from_numpy(toks), tcfg,
                             use_kernel=use_kernel, last_only=True)
-    _close(last, np.asarray(want)[:, -1:], FP32_TOL)
+    close_scaled(last, np.asarray(want)[:, -1:], FP32_TOL)
 
 
 def test_lm_forward_kernel_on_matches_repro_pallas():
     """At S = 128 repro's use_kernel=True runs its Pallas flash kernel
     (interpret mode); the port's kernel switch matches it."""
     jcfg = CONFIGS["llama_smoke"]
-    params, model, tcfg = _model(jcfg, seed=3)
-    toks = _tokens(4, (1, 128), jcfg.vocab)
+    params, model, tcfg = lm_pair(jcfg, seed=3)
+    toks = int_tokens(4, (1, 128), jcfg.vocab)
     want, _ = JM.lm_forward(params, jnp.asarray(toks), jcfg, use_kernel=True)
     got, _ = TM.lm_forward(model, torch.from_numpy(toks), tcfg, use_kernel=True)
-    _close(got, want, FP32_TOL)
+    close_scaled(got, want, FP32_TOL)
 
 
 def test_lm_forward_bf16_compute_matches_repro():
     jcfg = dataclasses.replace(j_llama.SMOKE, param_dtype="bfloat16",
                                compute_dtype="bfloat16")
-    params, model, tcfg = _model(jcfg, seed=5)
+    params, model, tcfg = lm_pair(jcfg, seed=5)
     assert model.embed.dtype == torch.bfloat16
-    toks = _tokens(6, (2, 32), jcfg.vocab)
+    toks = int_tokens(6, (2, 32), jcfg.vocab)
     want, _ = JM.lm_forward(params, jnp.asarray(toks), jcfg)
     for use_kernel in (False, True):
         got, _ = TM.lm_forward(model, torch.from_numpy(toks), tcfg,
                                use_kernel=use_kernel)
         assert got.dtype == torch.float32
-        _close(got, want, BF16_TOL)
+        close_scaled(got, want, BF16_TOL)
 
 
 def test_lm_forward_param_cast_to_compute_matches_repro():
     """bf16 params with fp32 compute: blocks are cast per layer (cast_tree)."""
     jcfg = dataclasses.replace(TINY_GQA, param_dtype="bfloat16")
-    params, model, tcfg = _model(jcfg, seed=7)
-    toks = _tokens(8, (1, 16), jcfg.vocab)
+    params, model, tcfg = lm_pair(jcfg, seed=7)
+    toks = int_tokens(8, (1, 16), jcfg.vocab)
     want, _ = JM.lm_forward(params, jnp.asarray(toks), jcfg)
     got, _ = TM.lm_forward(model, torch.from_numpy(toks), tcfg)
-    _close(got, want, FP32_TOL)
+    close_scaled(got, want, FP32_TOL)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_lm_decode_steps_match_repro(name):
     jcfg = CONFIGS[name]
-    params, model, tcfg = _model(jcfg, seed=9)
+    params, model, tcfg = lm_pair(jcfg, seed=9)
     B, steps = 2, 8
-    toks = _tokens(10, (B, steps), jcfg.vocab)
+    toks = int_tokens(10, (B, steps), jcfg.vocab)
     j_step = jax.jit(JM.lm_decode_step, static_argnames="cfg")
     j_caches = JM.init_cache(jcfg, B, steps + 4)
     t_caches = TM.init_cache(tcfg, B, steps + 4, CPU)
@@ -201,10 +178,10 @@ def test_lm_decode_steps_match_repro(name):
         t_caches, t_lg = TM.lm_decode_step(model, t_caches, torch.from_numpy(toks[:, t]),
                                            torch.from_numpy(pos), tcfg)
         assert t_lg.shape == (B, jcfg.vocab) and t_lg.dtype == torch.float32
-        _close(t_lg, j_lg, FP32_TOL)
+        close_scaled(t_lg, j_lg, FP32_TOL)
         outs.append(t_lg)
     for key in ("k", "v"):
-        _close(t_caches[0][key], j_caches[0][key], FP32_TOL)
+        close_scaled(t_caches[0][key], j_caches[0][key], FP32_TOL)
     # teacher-forced decode equals the port's own forward pass
     fwd, _ = TM.lm_forward(model, torch.from_numpy(toks), tcfg, use_kernel=True)
     torch.testing.assert_close(torch.stack(outs, dim=1), fwd, atol=FP32_TOL, rtol=0)
@@ -220,17 +197,17 @@ def test_arch_prefill_bundle_matches_repro():
     tb = t_arch.build("llama3.2-1b", "prefill_32k", smoke=True, device=CPU)
     assert (tb.shape.name, tb.shape.kind, tb.shape.dims) == (
         jb.shape.name, jb.shape.kind, jb.shape.dims)
-    assert tb.cfg == port_cfg(jb.cfg)
+    assert tb.cfg == port_lm_cfg(jb.cfg)
     assert tb.model_flops() == jb.model_flops()
     spec = tb.input_specs()["batch"]["tokens"]
     assert spec.shape == jb.input_specs()["batch"]["tokens"].shape == (2, 64)
     (params,) = jb.init(jax.random.key(11))
     model = TM.lm_from_params(numpy_tree(params), tb.cfg, device=CPU)
-    toks = _tokens(12, spec.shape, tb.cfg.vocab)
+    toks = int_tokens(12, spec.shape, tb.cfg.vocab)
     want = jb.step(params, dict(tokens=jnp.asarray(toks)))
     got = tb.step(model, dict(tokens=torch.from_numpy(toks)))
     assert got.shape == (2, tb.cfg.vocab)
-    _close(got, want, FP32_TOL)
+    close_scaled(got, want, FP32_TOL)
     (own,) = tb.init(torch.Generator().manual_seed(0))  # the port's own draws
     assert torch.isfinite(tb.step(own, dict(tokens=torch.from_numpy(toks)))).all()
 
@@ -244,14 +221,14 @@ def test_arch_decode_bundle_matches_repro():
     assert [tuple(c["k"].shape) for c in t_caches] == [c["k"].shape for c in j_caches]
     model = TM.lm_from_params(numpy_tree(params), tb.cfg, device=CPU)
     B = tb.shape.dims["global_batch"]
-    toks = _tokens(14, (B, 3), tb.cfg.vocab)
+    toks = int_tokens(14, (B, 3), tb.cfg.vocab)
     for t in range(3):
         pos = np.full((B,), t, np.int32)
         j_caches, want = jb.step(params, j_caches, dict(
             tokens=jnp.asarray(toks[:, t]), positions=jnp.asarray(pos)))
         t_caches, got = tb.step(model, t_caches, dict(
             tokens=torch.from_numpy(toks[:, t]), positions=torch.from_numpy(pos)))
-        _close(got, want, FP32_TOL)
+        close_scaled(got, want, FP32_TOL)
 
 
 def test_arch_defaults_to_the_card():
@@ -260,4 +237,4 @@ def test_arch_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_arch.build("llama3.2-1b", "prefill_32k", smoke=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        TM.init_cache(port_cfg(TINY_GQA), 1, 4)
+        TM.init_cache(port_lm_cfg(TINY_GQA), 1, 4)

@@ -28,7 +28,10 @@ from repro_torch.core import (
 )
 from repro_torch.core.tree import build_prefix_tree
 from repro_torch.core.walks import make_generator
-from torch_port_helpers import jax_uniforms, port_handle
+from torch_port_helpers import jax_uniforms, one_thread, port_handle
+
+# a file of many small CPU ops: one intra-op thread beside the other workers
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _setup(d, key, us, *, n_r, c=0.6, eps_a=0.2):

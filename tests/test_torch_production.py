@@ -40,7 +40,10 @@ import repro_torch.graph.io as TIO
 from repro_torch.configs import probesim as t_probesim
 from repro_torch.core.params import make_params
 from repro_torch.launch.mesh import ShardMesh
-from torch_port_helpers import needs_cuda
+from torch_port_helpers import needs_cuda, one_thread
+
+# a file of many small CPU ops: one intra-op thread beside the other workers
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C, SQRT_C = 0.6, float(np.sqrt(0.6))
@@ -484,7 +487,8 @@ def test_graph_io_equals_repro(tmp_path, monkeypatch):
      "--shards", "2", "--nodes", "300", "--edges", "2000"],
 ])
 def test_examples_run_at_toy_size(argv):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # one intra-op thread, as the ``one_thread`` fixture gives the tests
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-m", *argv, "--device", "cpu"],
                        capture_output=True, text=True, env=env, cwd=ROOT,
                        timeout=600)

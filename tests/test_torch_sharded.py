@@ -50,7 +50,10 @@ from repro_torch.graph import (
     shard_epoch_graph_from_arrays,
 )
 from repro_torch.launch.mesh import ShardMesh
-from torch_port_helpers import jax_uniforms
+from torch_port_helpers import jax_uniforms, one_thread
+
+# a file of many small CPU ops: one intra-op thread beside the other workers
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SHARDS = (1, 2, 4)
 N_NODES, N_EDGES = 203, 1500  # n = 203: divisible by none of 2, 3, 4

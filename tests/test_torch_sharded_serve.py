@@ -32,7 +32,10 @@ from repro_torch.core import make_params
 from repro_torch.core.epoch import build_shard_epoch_graph, make_sharded_serve_step
 from repro_torch.kernels import ell_plan
 from repro_torch.launch.mesh import ShardMesh
-from torch_port_helpers import jax_uniforms, needs_cuda
+from torch_port_helpers import jax_uniforms, needs_cuda, one_thread
+
+# a file of many small CPU ops: one intra-op thread beside the other workers
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SHARDS = (1, 2, 4)
 

@@ -34,7 +34,10 @@ from repro.graph import ell_from_edges as j_ell, graph_from_edges as j_coo
 from repro_torch.api import GraphHandle, SimRankSession
 from repro_torch.core.walks import derive_seed
 from repro_torch.graph import ell_from_edges, graph_from_edges
-from torch_port_helpers import CPU
+from torch_port_helpers import CPU, one_thread
+
+# a file of many small CPU ops: one intra-op thread beside the other workers
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N = 40
 

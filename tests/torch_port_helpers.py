@@ -4,6 +4,8 @@ Both packages meet on numpy arrays: JAX mirrors are turned into the port's
 through ``repro_torch.graph.convert``, and JAX's walk uniforms are injected
 into the port's fused serve step.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,66 @@ def jax_uniforms(keys, *, n_r, max_len, sqrt_c):
         lambda k: walk_uniforms(k, n_r=n_r, max_len=max_len, sqrt_c=sqrt_c)
     )(keys)
     return (torch.from_numpy(np.array(cont)), torch.from_numpy(np.array(pick)))
+
+
+@pytest.fixture
+def one_thread():
+    """Run the test's CPU steps on one intra-op thread.  The port's CPU
+    tests are thousands of small ops: beside the other busy test workers
+    each op waits on torch's thread pool (a file of them up to 20x slower
+    than alone); the results do not depend on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def port_lm_cfg(jcfg):
+    """The port's TransformerConfig with the fields of repro's ``jcfg``."""
+    import dataclasses
+
+    from repro_torch.configs.base import MoEConfig, TransformerConfig
+
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**dataclasses.asdict(fields["moe"]))
+    return TransformerConfig(**fields)
+
+
+@functools.lru_cache(maxsize=None)
+def lm_pair(jcfg, seed=0):
+    """repro's ``init_lm`` draws for ``jcfg`` (jitted: one compile, not one
+    per op) and the port's ``LM`` copied from them on the CPU: (params,
+    model, port config).  Cached: callers must not change them."""
+    from repro.models.transformer import model as JM
+    from repro_torch.models.transformer import model as TM
+
+    params = jax.jit(JM.init_lm, static_argnums=1)(jax.random.key(seed), jcfg)
+    tcfg = port_lm_cfg(jcfg)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    return params, TM.lm_from_params(tree, tcfg, device=CPU), tcfg
+
+
+def bf16_params(params):
+    """repro's fp32 LM params cast to bf16, routers kept in fp32 (the
+    layout ``init_lm`` gives at ``param_dtype="bfloat16"``), as numpy."""
+    def cast(path, a):
+        a = np.asarray(a)
+        key = getattr(path[-1], "key", None)
+        return a if key == "router" else a.astype(jax.numpy.bfloat16)
+
+    return jax.tree_util.tree_map_with_path(cast, params)
+
+
+def int_tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def close_scaled(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    w = np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(w).max()))
+    np.testing.assert_allclose(got.float().numpy(), w, atol=tol * scale, rtol=0)
 
 
 def needs_cuda():

@@ -104,18 +104,31 @@ Phases (any failure exits non-zero before the result line):
    largest batch up to 8 that fits (``decode_batch``), a profiled decode
    step, and 32 teacher-forced decode steps against the forward on a copy
    whose capacity factor drops nothing, in fp32 compute (the bf16 gap
-   printed: see ``MOE_TF_STEPS``);
+   printed: see ``MOE_TF_STEPS``); then ``train_phase``: Llama-3.2-1B
+   training at full width and depth (``train_4k`` at seq 4,096, the batch
+   cut at ``TRAIN_BATCH``) through ``arch.build_with_cfg`` with
+   ``use_kernel=False`` (``use_kernel=True`` refused: the flash kernel has
+   no backward), 8 AdamW steps fed by ``PrefetchPipeline`` over
+   ``synthetic.lm_batch`` with the launch counters read around them (no
+   kernel of the four runs), the loss finite and the loss of batch 0
+   falling, ms per step, tokens/s, peak memory and the model-FLOPs share
+   of the bf16 peak, one profiled step, one counted step; a 2-layer
+   full-width fp32 copy's loss and gradients against the CPU; the
+   launcher's fail -> restart equal to a clean run; Qwen1.5-MoE and
+   DeepSeek-V2-Lite at full width cut to 4 layers, 2 steps each with
+   every router's gradient nonzero; ``flash_attention`` under grad
+   refused on the card;
 7. the roofline (``roofline_phase``): the dry-run's records
    (``repro_torch.launch.dryrun`` on ``meta``: the probesim config uncut
    at 256 and 512 blocks, the ring at 256, the three dense LMs and the two
-   MoE configs at prefill_32k and decode_32k), counted in niced processes on the host
+   MoE configs at train_4k, prefill_32k and decode_32k), counted in niced processes on the host
    from the start, each with its three terms and memory per block; the
    op counter (``repro_torch.roofline``) on the card around the
    production cut's steps (each also counted on ``meta``: equal FLOPs,
-   bytes and collective bytes), a HepPh drain of 8 and tree query, and
-   the Llama, Qwen and DeepSeek prefills, each run's least time at most 105 % of its
-   measured time; the kernel bounds at their known values (lane_probe
-   142.4 MB, spmm_ell 18.56 MB).
+   bytes and collective bytes), a HepPh drain of 8 and tree query, the
+   Llama, Qwen and DeepSeek prefills and the Llama train step, each run's
+   least time at most 105 % of its measured time; the kernel bounds at
+   their known values (lane_probe 142.4 MB, spmm_ell 18.56 MB).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -124,6 +137,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -3669,6 +3683,344 @@ def moe_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6c: LM training at full width
+# ---------------------------------------------------------------------------
+
+# the train_4k global batch cut from 256 to the largest that fits in
+# TRAIN_MEM_SHARE of the card at seq 4,096 (uncut).  Measured peaks of one
+# step (H100 80GB HBM3, 85.0 GB): 50.92 GB at batch 4, 72.64 GB at 6 (85.4 %:
+# just over), out of memory at 8; about 10.9 GB a sequence (the fp32 logits
+# kept for the loss, 2.1 GB, their backward, and one block's recomputed
+# fp32 attention) beside 7.4 GB of bf16 weights and moments.  So 5, about
+# 61.8 GB; the phase checks its peak against the share.
+TRAIN_BATCH = 5
+TRAIN_MEM_SHARE = 0.85
+TRAIN_STEPS = 8
+TRAIN_MOE_LAYERS = 4  # the MoE configs at full width, depth cut to 4
+TRAIN_MOE_BATCH = 1
+GRAD_CHECK_TOL = 1e-4  # of each tensor's largest value, fp32 on both sides
+
+
+def profile_train(label: str, fn) -> dict:
+    """One train step under torch.profiler: the busy share, the device time
+    and kernel launches of the step's forward and update ranges (the
+    backward is the rest), device time by aten op grouped into the plain
+    attention (its fp32 ``bmm`` products, masks, softmax and their
+    backward), the bf16 GEMMs (``mm``: every projection), copies and
+    elementwise, and the ops with the most device time by input shape.
+    Returns the numbers it logs."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == cuda and e.self_device_time_total > 0
+               and not e.key.startswith("train_step.")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+
+    def in_range(name):
+        ms, n = 0.0, 0
+        stack = [e for e in prof.events() if e.name == name and e.device_type != cuda]
+        while stack:
+            e = stack.pop()
+            ms += sum(k.duration for k in e.kernels) / 1e3
+            n += len(e.kernels)
+            stack.extend(e.cpu_children)
+        return ms, n
+
+    fwd_ms, fwd_n = in_range("train_step.forward")
+    upd_ms, upd_n = in_range("train_step.update")
+    by_op = {e.key: e.self_device_time_total / 1e3 for e in avg
+             if e.device_type != cuda and e.key.startswith("aten::")
+             and e.self_device_time_total > 0}
+    groups = {
+        "plain attention (bmm, masked_fill_, softmax and its backward)": (
+            "aten::bmm", "aten::masked_fill_", "aten::_softmax",
+            "aten::_softmax_backward_data"),
+        "bf16 GEMMs (mm)": ("aten::mm",),
+        "loss (logsumexp, gather, scatter, exp, sub)": (
+            "aten::logsumexp", "aten::gather", "aten::scatter_add_", "aten::scatter_",
+            "aten::exp", "aten::sub"),
+        "copies (copy_)": ("aten::copy_",),
+        "elementwise (mul, add, where, ...)": ("aten::mul", "aten::add", "aten::add_",
+                                              "aten::where", "aten::div", "aten::sqrt"),
+    }
+    log(f"profiled {label}: wall {wall_ms:.1f} ms (profiler on), device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.1%}), {launches} launches; forward "
+        f"{fwd_ms:.1f} ms ({fwd_n} launches), update (AdamW) {upd_ms:.1f} ms "
+        f"({upd_n} launches), backward (the rest) {busy - fwd_ms - upd_ms:.1f} ms")
+    for name, ops in groups.items():
+        ms = sum(by_op.get(o, 0.0) for o in ops)
+        log(f"  {ms:10.3f} ms ({ms / max(busy, 1e-9):6.1%})  {name}")
+    shaped = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                     if e.device_type != cuda and e.key.startswith("aten::")
+                     and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    for e in shaped[:8]:
+        log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:5d} x  {e.key} "
+            f"{str(e.input_shapes)[:80]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, forward_ms=fwd_ms, update_ms=upd_ms,
+                update_launches=upd_n, launches=launches)
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.lane_probe.ops import lane_probe_level
+    from repro_torch.kernels.probe_push.ops import probe_push
+    from repro_torch.kernels.spmm_ell.ops import spmm_ell_padded
+
+    return {"flash_attention": flash_attention, "lane_probe": lane_probe_level,
+            "spmm_ell": spmm_ell_padded, "probe_push": probe_push}
+
+
+def grad_check(cfg, dev) -> None:
+    """A 2-layer copy of ``cfg`` at full width in fp32 (seq 256, batch 1):
+    ``lm_loss`` and every gradient on the card against the port on the CPU
+    from the same weights, each within GRAD_CHECK_TOL of its tensor's
+    largest value."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.transformer import model as M
+
+    small = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                                compute_dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    card_model = M.init_lm(gen, small).requires_grad_(True)
+    cpu_model = M.lm_from_params(M.lm_to_params(card_model), small,
+                                 device="cpu").requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (1, 257), generator=gen, device=dev,
+                         dtype=torch.int32)
+    out = {}
+    for name, model in (("card", card_model), ("cpu", cpu_model)):
+        t0 = time.perf_counter()
+        batch = dict(tokens=toks.to(next(model.parameters()).device))
+        loss, _ = M.lm_loss(model, batch, small)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+        out[name] = (float(loss.detach()), dict(zip(names, (g.cpu() for g in grads))),
+                     time.perf_counter() - t0)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    require(abs(l_card - l_cpu) <= GRAD_CHECK_TOL * abs(l_cpu),
+            f"grad check: loss {l_card} on the card, {l_cpu} on the CPU")
+    worst = 0.0
+    for n, g in g_cpu.items():
+        scale = float(g.abs().max())
+        err = float((g_card[n] - g).abs().max())
+        require(scale > 0 and err <= GRAD_CHECK_TOL * scale,
+                f"grad check: {n} differs by {err} (scale {scale})")
+        worst = max(worst, err / scale)
+    log(f"  gradient check (2 layers at full width, fp32, 1 x 256): loss {l_card:.6f} "
+        f"on the card vs {l_cpu:.6f} on the CPU, {len(g_cpu)} gradients within "
+        f"{worst:.2e} of their largest values (limit {GRAD_CHECK_TOL:g}); card "
+        f"{s_card:.2f} s, CPU {s_cpu:.2f} s")
+    del card_model, cpu_model, out
+    torch.cuda.empty_cache()
+
+
+def restart_check(dev) -> None:
+    """``launch.train.train`` at smoke size on the card: a run that fails
+    at step 9 and restarts from step 8's checkpoint ends with the state of a
+    clean 12-step run, bitwise (the Llama path's ops are deterministic on
+    the card in the default mode: the embedding's backward sorts its
+    indices, the gather's has one index a row)."""
+    from repro_torch.launch.train import state_tree, train
+    from repro_torch.training.tree import leaves
+
+    with tempfile.TemporaryDirectory() as ck:
+        kw = dict(smoke=True, steps=12, ckpt_every=4, device=dev)
+        try:
+            train("llama3.2-1b", "train_4k", ckpt_dir=ck, fail_at=9, **kw)
+        except RuntimeError as e:
+            require("injected failure at step 9" in str(e), str(e))
+        else:
+            require(False, "fail_at=9 did not fail")
+        resumed = train("llama3.2-1b", "train_4k", ckpt_dir=ck, **kw)
+        clean = train("llama3.2-1b", "train_4k", ckpt_dir=None, **kw)
+    require(resumed["steps"] == 3 and clean["steps"] == 12,
+            f"steps {resumed['steps']} / {clean['steps']}")
+    a = leaves(state_tree(*resumed["state"]))
+    b = leaves(state_tree(*clean["state"]))
+    d = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    require(d == 0.0, f"restart differs from the clean run by {d}")
+    log("  restart: fail at step 9, restore step 8, 3 more steps: bitwise equal "
+        "to a clean 12-step run (default mode)")
+
+
+def moe_train(arch_id: str, dev, gen) -> None:
+    """A MoE config at full width, depth cut to TRAIN_MOE_LAYERS, batch
+    TRAIN_MOE_BATCH at seq 4,096: two train steps whose loss is finite and
+    whose every router got a nonzero gradient (its first Adam moment)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.data import synthetic
+
+    cfg = dataclasses.replace(get_config(arch_id), n_layers=TRAIN_MOE_LAYERS)
+    shape = cut(next(s for s in shapes_for(arch_id) if s.name == "train_4k"),
+                global_batch=TRAIN_MOE_BATCH)
+    bundle = arch.build_with_cfg(arch_id, cfg, shape, use_kernel=False, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = bundle.init(gen)
+    B, S = shape.dims["global_batch"], shape.dims["seq_len"]
+    losses, step_s = [], []
+    for step in range(2):
+        b = synthetic.lm_batch(0, step, B, S, cfg.vocab)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        t0 = time.perf_counter()
+        model, opt, m = bundle.step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        require(bool(torch.isfinite(m["aux"])) and float(m["aux"]) > 0,
+                f"{arch_id} aux loss {float(m['aux'])}")
+    require(all(math.isfinite(x) for x in losses), f"{arch_id} losses {losses}")
+    routers = {n: mu for n, mu in opt["mu"].items() if n.endswith(".router")}
+    moe_layers = TRAIN_MOE_LAYERS - cfg.moe.first_dense_layers
+    require(len(routers) == moe_layers, f"{len(routers)} routers, want {moe_layers}")
+    for n, mu in routers.items():
+        require(bool(torch.isfinite(mu).all()) and float(mu.abs().sum()) > 0,
+                f"{arch_id}: router {n} got no gradient")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {arch_id} ({TRAIN_MOE_LAYERS} of {get_config(arch_id).n_layers} layers, "
+        f"{n_params} params, batch {B} x {S}): losses {losses[0]:.4f}, {losses[1]:.4f}; "
+        f"steps {step_s[0]:.2f} s, {step_s[1]:.2f} s; {len(routers)} routers with "
+        f"nonzero gradients; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev) -> dict:
+    """Llama-3.2-1B training at full width and depth through
+    ``arch.build_with_cfg`` (``train_4k`` at batch TRAIN_BATCH), fed by
+    ``PrefetchPipeline`` over ``synthetic.lm_batch``; then the gradient
+    check, the restart check, the MoE configs and the refusals.  Returns the
+    kernels' launches of the training window (the path runs none)."""
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.data.pipeline import PrefetchPipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.transformer import model as M
+
+    t_phase = time.perf_counter()
+    counters = kernel_counts()
+    cfg = get_config("llama3.2-1b")
+    full = next(s for s in shapes_for("llama3.2-1b") if s.name == "train_4k")
+    try:
+        arch.build_with_cfg("llama3.2-1b", cfg, full, device=dev)
+    except ValueError as e:
+        log(f"  the train bundle refuses use_kernel=True: {e}")
+    else:
+        require(False, "the train bundle took use_kernel=True")
+    bundle = arch.build_with_cfg("llama3.2-1b", cfg, cut(full, global_batch=TRAIN_BATCH),
+                                 use_kernel=False, device=dev)
+    B, S = bundle.shape.dims["global_batch"], bundle.shape.dims["seq_len"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = bundle.init(gen)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    make = make_batch_fn(bundle, seed=0)
+    first = {k: torch.from_numpy(v).to(dev) for k, v in make(0).items()}
+    with torch.no_grad():
+        before = float(M.lm_loss(model, first, cfg)[0])
+    log(f"llama3.2-1b training: batch {B} (of {full.dims['global_batch']}) x {S}, "
+        f"state (bf16 weights + bf16 AdamW moments) {state_gb:.2f} GB; loss of batch 0 "
+        f"before training {before:.4f}")
+
+    # --- the training window, with every launch counter read around it ----
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    pipe = PrefetchPipeline(make, start_step=0, device=dev)
+    losses, gnorms, step_s = [], [], []
+    try:
+        for step, batch in pipe:
+            if step >= TRAIN_STEPS:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, m = bundle.step(model, opt, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+    finally:
+        pipe.close()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------------
+    total = torch.cuda.mem_get_info()[1]
+    require(sum(launches.values()) == 0, f"training launched a kernel: {launches}")
+    require(all(math.isfinite(x) for x in losses + gnorms),
+            f"losses {losses}, grad norms {gnorms}")
+    require(int(opt["count"]) == TRAIN_STEPS, f"count {int(opt['count'])}")
+    require(peak <= TRAIN_MEM_SHARE * total,
+            f"peak {peak / 1e9:.2f} GB above {TRAIN_MEM_SHARE:.0%} of {total / 1e9:.1f} GB")
+    with torch.no_grad():
+        after = float(M.lm_loss(model, first, cfg)[0])
+    require(after < before and losses[-1] < losses[0],
+            f"the loss did not fall: batch 0 {before} -> {after}, steps {losses}")
+    ms = sum(step_s[1:]) / len(step_s[1:]) * 1e3
+    mfu = bundle.model_flops() / (ms * 1e-3 * hw()["peak_flops_bf16"])
+    log(f"  {TRAIN_STEPS} steps: losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; grad norms {gnorms[0]:.3f} .. {gnorms[-1]:.3f}; loss of batch 0 "
+        f"{before:.4f} -> {after:.4f}")
+    log(f"  train step: {ms:.1f} ms (steps 2-{TRAIN_STEPS}; step 1 "
+        f"{step_s[0] * 1e3:.1f} ms), {B * S / ms * 1e3:.1f} tokens/s, peak "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.1f} GB, model FLOPs "
+        f"{bundle.model_flops():.4g} a step = {mfu:.2%} of the bf16 peak; "
+        f"launches {launches}; card: {card()}")
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make(TRAIN_STEPS).items()}
+    profile_train(f"llama3.2-1b train step (batch {B} x {S})",
+                  lambda: bundle.step(model, opt, batch))
+    count_on_card(f"llama3.2-1b train step (batch {B} x {S})",
+                  lambda: bundle.step(model, opt, batch), ms,
+                  model_flops=bundle.model_flops())
+    require(any(op.startswith("_softmax_backward") for op in COUNTED[-1]["ops"]),
+            "the op counter saw no backward op of the train step")
+    del model, opt, batch, first
+    torch.cuda.empty_cache()
+
+    grad_check(cfg, dev)
+    restart_check(dev)
+    for arch_id in MOE_ARCHS:
+        moe_train(arch_id, dev, gen)
+
+    # the flash kernel under grad: refused on the card (it has no backward)
+    q = torch.zeros((1, 128, 4, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.bfloat16)
+    before_launches = flash_attention.launches
+    try:
+        flash_attention(q, kv, kv)
+    except RuntimeError as e:
+        require("no backward" in str(e), str(e))
+        log(f"  flash_attention under grad refused on the card: {e}")
+    else:
+        require(False, "flash_attention ran under grad on the card")
+    require(flash_attention.launches == before_launches, "the refused call launched")
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s; card: {card()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The roofline: the dry-run on the host, the op counter on the card
 # ---------------------------------------------------------------------------
 
@@ -3687,7 +4039,7 @@ DRYRUN_CELLS = (
     ("probesim", "serve_online", "single", ("--set", "push_mode=ring", "--tag", "ring")),
 ) + tuple((a, s, "both", ()) for a in ("llama3.2-1b", "yi-34b", "llama3-405b",
                                          "qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
-          for s in ("prefill_32k", "decode_32k"))
+          for s in ("train_4k", "prefill_32k", "decode_32k"))
 DRYRUN_TIMEOUT_S = 900
 
 
@@ -3732,7 +4084,8 @@ def record_count(name, ms, rep, counter, old_bound_ms=None) -> None:
         f"on tensor cores), {counter.bytes:.4g} B, collectives "
         f"{ {k: v for k, v in counter.collective_bytes.items() if v} }; most: "
         + ", ".join(f"{n} x{c} {t * 1e3:.3f} ms" for n, c, t in top) + extra)
-    COUNTED.append(dict(name=name, ms=ms, share=share, top=top[0][0] if top else ""))
+    COUNTED.append(dict(name=name, ms=ms, share=share, top=top[0][0] if top else "",
+                        ops=sorted(counter.by_op)))
 
 
 def count_on_card(name, fn, ms, *, model_flops=0.0):
@@ -3938,16 +4291,18 @@ def run(procs, out_dir: str) -> int:
     stream_launches = stream_phase(dev)
     lm_launches = lm_phase(dev)
     moe_launches = moe_phase(dev)
+    train_launches = train_phase(dev)
     roofline_phase(procs, out_dir, rows)
 
     # each kernel's launches in the windows of the paths that run it; probe_push
-    # is on no path (the reference calls it only from its tests)
+    # is on no path (the reference calls it only from its tests), and training
+    # launches none (it runs the plain attention: the kernel has no backward)
     for name, row in rows.items():
         row["launches"] = (launches[name] + acc_launches[name]
                            + svc_launches[name] + shard_launches[name]
                            + prod_launches[name] + dyn_launches[name]
                            + stream_launches[name] + lm_launches[name]
-                           + moe_launches[name])
+                           + moe_launches[name] + train_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

@@ -3,24 +3,30 @@
 ``build(arch, shape_name, smoke=..., device=..., mesh=...)`` returns an
 ``ArchBundle`` exposing, as the reference's ``repro.arch`` does:
 
-* ``init(gen)``     -> the state tuple: ``(model,)`` for prefill,
-  ``(model, caches)`` for decode, drawn from a ``torch.Generator`` (on a
-  ``meta`` bundle ``init()`` gives the shapes alone, as ``meta`` tensors);
+* ``init(gen)``     -> the state tuple: ``(model, opt_state)`` for train
+  (the model's leaves require grad), ``(model,)`` for prefill, ``(model,
+  caches)`` for decode, drawn from a ``torch.Generator`` (on a ``meta``
+  bundle ``init()`` gives the shapes alone, as ``meta`` tensors);
   ``(graph,)`` for the ProbeSim family;
 * ``input_specs()`` -> dict[name, TensorSpec] of the step's batch;
-* ``step``          -> the serving step (prefill: ``step(model, batch)`` ->
+* ``step``          -> train: ``step(model, opt_state, batch)`` -> ``(model,
+  opt_state, metrics)``, one AdamW step written in place; serving
+  (prefill: ``step(model, batch)`` ->
   next-token logits [B, V]; decode: ``step(model, caches, batch)`` ->
   ``(caches, logits [B, V])``, caches updated in place; ProbeSim:
   ``step(graph, batch)`` -> ``(topk_idx [Q, k], topk_val [Q, k])``);
 * ``model_flops()`` -> MODEL_FLOPS of one step.
 
-The LM family's serving shapes (dense GQA, and the MoE / MLA configs
-``deepseek-v2-lite-16b`` and ``qwen2-moe-a2.7b``) and the ProbeSim family
-(the paper's own config, ``probesim``) are ported.  Training, the GNN and recsys families
-and the sharding specs wait (ROADMAP queue 1 item 14).  The port runs on
-the card unless asked otherwise: ``device`` defaults to "cuda" and
-``use_kernel`` to True (the flash kernel on prefill; MLA's prefill needs
-``use_kernel=False``: the kernel refuses its head widths).  The ProbeSim
+The LM family (dense GQA, and the MoE / MLA configs
+``deepseek-v2-lite-16b`` and ``qwen2-moe-a2.7b``; training, prefill and
+decode) and the ProbeSim family (the paper's own config, ``probesim``) are
+ported.  The GNN and recsys families and the sharding specs wait (ROADMAP
+queue 1 item 14).  The port runs on the card unless asked otherwise:
+``device`` defaults to "cuda" and ``use_kernel`` to True (the flash kernel
+on prefill; MLA's prefill needs ``use_kernel=False``: the kernel refuses
+its head widths).  The train bundle needs ``use_kernel=False`` and raises
+otherwise: the flash kernel has no backward (nor has the reference's), and
+the reference trains through the plain attention too.  The ProbeSim
 bundles run on ``mesh`` (a ``ShardMesh``), by default one block on
 ``device``: the port's form of the reference's ambient mesh.
 """
@@ -63,6 +69,16 @@ class ArchBundle:
     notes: str = ""
 
 
+def _make_optimizer(cfg):
+    """The reference's AdamW: warmup-cosine to 3e-4, bf16 moments when the
+    parameters are bf16."""
+    from repro_torch.training.optimizer import AdamW, warmup_cosine_schedule
+
+    bf16 = getattr(cfg, "param_dtype", "") == "bfloat16"
+    return AdamW(schedule=warmup_cosine_schedule(3e-4, 100, 10_000),
+                 state_dtype=torch.bfloat16 if bf16 else torch.float32)
+
+
 def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
                use_kernel: bool, device: torch.device) -> ArchBundle:
     from repro_torch.models.transformer import model as M
@@ -71,6 +87,8 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
     S = shape.dims["seq_len"]
 
     def flops():
+        if shape.kind == "train":
+            return 6.0 * cfg.params_active * B * S
         if shape.kind == "prefill":
             return 2.0 * cfg.params_active * B * S
         # decode: one token per sequence + attention over the cache
@@ -81,7 +99,35 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
         if gen.device.type != device.type:
             raise ValueError(f"generator on {gen.device}, bundle on {device}")
 
-    if shape.kind == "prefill":
+    if shape.kind == "train":
+        if use_kernel:
+            raise ValueError(
+                f"{arch} {shape.name}: the train bundle runs the plain sdpa; the "
+                "flash kernel has no backward (the reference's has none), so "
+                "build it with use_kernel=False")
+        from repro_torch.training.step import make_train_step
+
+        opt = _make_optimizer(cfg)
+
+        def loss_fn(model, batch):
+            return M.lm_loss(model, batch, cfg, use_kernel=False)
+
+        step = make_train_step(loss_fn, opt, microbatches=getattr(cfg, "microbatches", 1))
+
+        def init(gen=None):
+            if device.type == "meta":
+                model = M.init_lm(None, cfg)
+            else:
+                gen_device(gen)
+                model = M.init_lm(gen, cfg)
+            model.requires_grad_(True)  # serving's leaves stay frozen
+            return (model, opt.init(model))
+
+        def input_specs():
+            return dict(batch=dict(tokens=TensorSpec((B, S), torch.int32),
+                                   targets=TensorSpec((B, S), torch.int32)))
+
+    elif shape.kind == "prefill":
 
         def step(model, batch):
             logits, _ = M.lm_forward(model, batch["tokens"], cfg,
@@ -114,10 +160,7 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
                                    positions=TensorSpec((B,), torch.int32)))
 
     else:
-        raise NotImplementedError(
-            f"LM shape kind {shape.kind!r} (the train bundle) is not ported "
-            f"({NOT_PORTED})"
-        )
+        raise ValueError(f"LM shape kind {shape.kind!r}")
 
     return ArchBundle(
         arch=arch, cfg=cfg, shape=shape, step=step, init=init,

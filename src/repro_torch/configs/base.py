@@ -5,9 +5,10 @@ Each ported architecture registers one module in this package exposing
 ``CONFIG`` (full scale, the published numbers) and ``SMOKE`` (reduced,
 CPU-runnable).  The dataclasses are the reference's, field for field, so a
 config compares equal across the two packages.  The LM configs (dense, MoE
-and MLA) and ProbeSim are ported; the GNN and recsys configs wait for their
-slices (ROADMAP queue 1 item 14), but ``ARCH_IDS``, every family's shapes
-and ``family_of`` cover them, so a dry-run can name each cell it skips.
+and MLA; trained and served) and ProbeSim are ported; the GNN and recsys
+configs wait for their slices (ROADMAP queue 1 item 14), but ``ARCH_IDS``,
+every family's shapes and ``family_of`` cover them, so a dry-run can name
+each cell it skips.
 """
 from __future__ import annotations
 

@@ -26,6 +26,13 @@ back to the other.  ``meta`` tensors take the meta route: the checks,
 then an empty output of the right shape and dtype (a dry-run's step),
 nothing computed.  Under a ``roofline.analysis`` counter a call counts as
 one op of ``flash_work`` on every route.
+
+The kernel has no backward, as the reference's Pallas kernel has none: on a
+CUDA or ``meta`` tensor a call with grad enabled and any of q / k / v
+requiring grad raises ``RuntimeError`` (its output, written through raw
+pointers, would carry no ``grad_fn`` and autograd would drop every
+attention gradient).  Training runs the plain ``sdpa``; the CPU route is
+``attention_ref``, differentiable as it is.
 """
 from __future__ import annotations
 
@@ -106,6 +113,11 @@ def flash_attention(
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward (the reference's has "
+            "none either), and q / k / v require grad; train through the plain "
+            "sdpa (use_kernel=False) or call it under torch.no_grad()")
     if q.device.type == "meta":
         _check(q, k, v, causal)
         return torch.empty_like(q)

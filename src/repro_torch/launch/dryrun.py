@@ -16,14 +16,16 @@ Unlike the reference there is no depth-delta extrapolation (XLA's
 layer) and no compile, so ``--skip-full-compile`` has no counterpart.
 
 An LM cell counts the flash kernel where its prefill runs it; MLA's
-prefill runs the plain ``sdpa`` (the kernel refuses its head widths, ROADMAP
-queue 1 item 14), so its bundle is built with ``use_kernel=False``.
+prefill runs the plain ``sdpa`` (the kernel refuses its head widths), so
+its bundle is built with ``use_kernel=False``, as is every ``train_4k``
+bundle (the kernel has no backward).  A train cell counts the whole step
+with autograd on: the forward, the backward with each block recomputed
+(``cfg.remat``), and the AdamW update.
 
-A cell the port does not have yet (the LM ``train_4k``, the GNN archs and
-``wide-deep``) writes ``{arch}__{shape}__skip.json``
-with the ``NotImplementedError``'s words (they name ROADMAP queue 1 item
-14), as does an inapplicable cell (``arch.is_applicable``) unless
-``--include-skipped``.  A cell that fails writes
+A cell the port does not have yet (the GNN archs and ``wide-deep``) writes
+``{arch}__{shape}__skip.json`` with the ``NotImplementedError``'s words
+(they name ROADMAP queue 1 item 14), as does an inapplicable cell
+(``arch.is_applicable``) unless ``--include-skipped``.  A cell that fails writes
 ``{arch}__{shape}__{mesh}.FAILED.json`` and the run exits non-zero.
 
 Usage:
@@ -132,11 +134,14 @@ def count_step(bundle, state, inputs, *, mesh_name: str,
                chips: int) -> tuple[ra.RooflineReport, ra.OpCounter]:
     """Run ``bundle.step(*state, **inputs)`` once under an ``OpCounter``
     and return the finalized report (per device: every count over
-    ``chips``) and the counter."""
+    ``chips``) and the counter.  A train step runs with autograd on (its
+    backward and update are counted), any other in inference mode."""
     batch = inputs["batch"]
     extra = {k: v for k, v in inputs.items() if k != "batch"}
     counter = ra.OpCounter()
-    with torch.inference_mode(), counter:
+    mode = (torch.enable_grad() if bundle.shape.kind == "train"
+            else torch.inference_mode())
+    with mode, counter:
         out = bundle.step(*state, batch, **extra)
         args = storages((state, inputs))
         # an output written in place into the state (decode's caches) is
@@ -188,7 +193,8 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *,
         record["overrides"] = {k: str(v) for k, v in overrides.items()}
     shape = next(s for s in shapes_for(arch_id) if s.name == shape_name)
     device = mesh.home if cfg.family == "probesim" else META
-    use_kernel = not (cfg.family == "lm" and cfg.attention == "mla")
+    use_kernel = not (cfg.family == "lm"
+                      and (cfg.attention == "mla" or shape.kind == "train"))
     bundle = arch_mod.build_with_cfg(arch_id, cfg, shape, device=device,
                                      mesh=mesh, use_kernel=use_kernel)
     state = abstract_state(bundle)

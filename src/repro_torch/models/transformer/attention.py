@@ -53,7 +53,10 @@ def sdpa(
     ``use_kernel`` sends causal prefill (``causal_offset == 0``, S > 1) to
     ``kernels.flash_attention``; decode (S == 1, ``kv_len``) stays plain.
     ``use_kernel`` with v's width other than q's, or above the kernel's
-    ``MAX_HEAD_DIM``, raises ``ValueError`` on every device."""
+    ``MAX_HEAD_DIM``, raises ``ValueError`` on every device.  The kernel has
+    no backward: under grad its CUDA and ``meta`` routes raise, so training
+    runs this plain path (``use_kernel=False``), in-place chunk writes and
+    masks included, which autograd differentiates."""
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv

@@ -7,10 +7,16 @@ leaves keep the reference's layouts (``attn.wq [d, H, dh]``, ``wo [H, dh,
 d]``, ``ffn.w_gate [d, f]``, MoE experts ``[E, d, f]``, MLA's ``w_dkv``,
 ...), so converting the reference's pytree is a copy (``lm_from_params``).
 The reference scans over stacked per-stage params; here each stage is a
-``ModuleList`` of blocks and the layers run in a Python loop.  Remat does
-not apply to inference.  The training loss waits for a later slice (ROADMAP
-queue 1 item 14); the sharding specs (``param_specs``, ``cache_specs``) have
-no meaning on one device.
+``ModuleList`` of blocks and the layers run in a Python loop.  ``lm_loss``
+is the causal-LM loss of training: with ``cfg.remat`` and grad enabled each
+block runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body), so a block's activations are
+recomputed in the backward pass.  Serving leaves are frozen; the train
+bundle turns them on (``requires_grad_``).  ``lm_to_params`` (and ``stack_layers`` /
+``unstack_layers`` under it) give the reference's stacked pytree back, so
+parameters, optimizer moments and checkpoints cross between the packages.
+The sharding specs (``param_specs``, ``cache_specs``) have no meaning on
+one device.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 import repro_torch.models.common as cm
 from repro_torch.models.common import rms_norm
@@ -171,15 +178,82 @@ def lm_from_params(params: dict, cfg, device="cuda") -> LM:
     return model
 
 
+def _split(name: str) -> tuple[str, int | None, list[str]]:
+    """A ``named_parameters`` name -> (top key, layer or None, path below):
+    "stage0.3.attn.wq" -> ("stage0", 3, ["attn", "wq"])."""
+    parts = name.split(".")
+    if parts[0].startswith("stage"):
+        return parts[0], int(parts[1]), parts[2:]
+    return parts[0], None, []
+
+
+def stack_layers(named: dict) -> dict:
+    """The reference's pytree layout from tensors keyed like an ``LM``'s
+    ``named_parameters()`` (parameters, or optimizer moments of the same
+    shapes): top leaves as they are, each stage's leaves stacked ``[L,
+    ...]`` in layer order (``torch.stack``: a copy, on the tensors'
+    device)."""
+    tree: dict[str, Any] = {}
+    layers: dict[tuple, dict[int, Tensor]] = {}
+    for name, t in named.items():
+        top, li, path = _split(name)
+        if li is None:
+            tree[top] = t
+        else:
+            layers.setdefault((top, *path), {})[li] = t
+    for (top, *path), by_layer in layers.items():
+        node = tree.setdefault(top, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+    return tree
+
+
+def unstack_layers(tree: dict, named: dict) -> None:
+    """Copy the leaves of a reference-layout tree (tensors or numpy, bf16
+    upcast to fp32 included) into the tensors keyed like ``named_parameters()``,
+    in place, each cast to its tensor's dtype (the inverse of
+    ``stack_layers``)."""
+    with torch.no_grad():
+        for name, t in named.items():
+            top, li, path = _split(name)
+            node = tree[top]
+            for key in path:
+                node = node[key]
+            if li is not None:
+                node = node[li]
+            src = node if isinstance(node, Tensor) else _tensor(node, "cpu")
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"unstack_layers: {name} is {tuple(t.shape)}, "
+                                 f"the tree's leaf {tuple(src.shape)}")
+            t.copy_(src)
+
+
+def to_numpy(tree):
+    """A nested dict of tensors as numpy on the host; bf16 upcast to fp32
+    (lossless: numpy has no bf16)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_to_params(model: LM) -> dict:
+    """The reference's ``init_lm`` pytree of ``model`` as numpy (the
+    inverse of ``lm_from_params``; bf16 leaves upcast to fp32)."""
+    return to_numpy(stack_layers({n: p.detach().cpu()
+                                  for n, p in model.named_parameters()}))
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 
-def _blocks(model: LM, cfg, si: int, cdt):
-    for block in model.stage(si):
-        blk = block.tree()
-        yield cm.cast_tree(blk, cdt) if cfg.param_dtype != cfg.compute_dtype else blk
+def _block_tree(block: ParamTree, cfg, cdt) -> dict:
+    """A block's leaves, cast to the compute dtype when the params differ."""
+    blk = block.tree()
+    return cm.cast_tree(blk, cdt) if cfg.param_dtype != cfg.compute_dtype else blk
 
 
 def _ffn(blk: dict, h: Tensor, cfg, kind: str) -> tuple[Tensor, Tensor | None]:
@@ -200,6 +274,14 @@ def _block_forward(blk: dict, x: Tensor, positions: Tensor, cfg, kind: str,
     return x + f, aux
 
 
+def _layer(block: ParamTree, x: Tensor, positions: Tensor, cfg, kind: str,
+           use_kernel: bool, cdt) -> tuple[Tensor, Tensor | None]:
+    """One block, its leaves cast to the compute dtype inside (under remat
+    the cast is recomputed too, as in the reference's checkpointed body)."""
+    return _block_forward(_block_tree(block, cfg, cdt), x, positions, cfg, kind,
+                          use_kernel)
+
+
 def _head(model: LM) -> Tensor:
     head = getattr(model, "lm_head", None)
     return model.embed.T if head is None else head
@@ -216,16 +298,23 @@ def lm_forward(
     """Returns (logits [B, S, V] fp32, aux_loss); last_only -> [B, 1, V].
 
     The aux loss is the MoE routers' summed over the layers; dense stages
-    add 0."""
+    add 0.  With ``cfg.remat`` and grad enabled each block is checkpointed
+    (non-reentrant; no RNG state: a block draws nothing)."""
     _check_supported(cfg)
     cdt = cm.dtype_of(cfg.compute_dtype)
     B, S = tokens.shape
     x = model.embed[tokens.long()].to(cdt)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for si, (_, kind) in enumerate(stages_of(cfg)):
-        for blk in _blocks(model, cfg, si, cdt):
-            x, aux = _block_forward(blk, x, positions, cfg, kind, use_kernel)
+        for block in model.stage(si):
+            args = (block, x, positions, cfg, kind, use_kernel, cdt)
+            if remat:
+                x, aux = checkpoint(_layer, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = _layer(*args)
             if aux is not None:
                 aux_total = aux_total + aux
     if last_only:
@@ -234,6 +323,25 @@ def lm_forward(
     ldt = cm.dtype_of(getattr(cfg, "logits_dtype", "float32"))
     logits = (x @ _head(model).to(cdt)).to(ldt)
     return logits, aux_total
+
+
+def lm_loss(model: LM, batch: dict, cfg, *, use_kernel: bool = False):
+    """Causal-LM cross entropy plus the MoE aux loss: ``(loss, dict(nll=,
+    aux=))``.
+
+    batch: either {tokens [B, S+1]} (shifted here) or {tokens [B, S],
+    targets [B, S]} (pre-shifted by the data pipeline).  The logsumexp runs
+    in fp32 and the gold logit is gathered, as in the reference."""
+    tokens = batch["tokens"]
+    if "targets" in batch:
+        inp, tgt = tokens, batch["targets"]
+    else:
+        inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = lm_forward(model, inp, cfg, use_kernel=use_kernel)
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
+    nll = (logz - gold.float()).mean()
+    return nll + aux, dict(nll=nll, aux=aux)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +384,8 @@ def lm_decode_step(
     decode = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
     for si, (_, kind) in enumerate(stages_of(cfg)):
         cache = caches[si]
-        for li, blk in enumerate(_blocks(model, cfg, si, cdt)):
+        for li, block in enumerate(model.stage(si)):
+            blk = _block_tree(block, cfg, cdt)
             h = rms_norm(x, blk["norm_attn"], cfg.norm_eps)
             layer_cache = {k: c[li] for k, c in cache.items()}  # views: written in place
             _, a = decode(blk["attn"], layer_cache, h, position, cfg)

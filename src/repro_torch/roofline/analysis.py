@@ -215,6 +215,8 @@ _FREE = frozenset((
     "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
     "_local_scalar_dense", "detach", "alias", "lift_fresh", "set_", "resize_",
     "record_stream", "_unsafe_view",
+    # profiler ranges (``record_function``): markers, no work
+    "_record_function_enter_new", "_record_function_exit",
 ))
 _GATHERS = frozenset(("index", "_unsafe_index", "index_select", "gather",
                       "embedding"))

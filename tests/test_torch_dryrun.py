@@ -94,7 +94,7 @@ def test_count_params_equals_repro(cfg):
     assert count_params(TM.init_lm(None, tcfg)) == j_count_params(params)
 
 
-# Names of repro's ``__all__`` that the port leaves out, with the reason.
+# Names of repro's public surface that the port leaves out, with the reason.
 LEFT_OUT = {
     "core": {"shard_epoch_specs": "jax only: sharding specs of the mesh epoch",
              "epoch_pipeline": "removed: the fused epoch step replaces it"},
@@ -104,12 +104,25 @@ LEFT_OUT = {
 }
 
 
-@pytest.mark.parametrize("pkg", ["api", "core", "graph", "serving", "streams"])
+def _public(mod) -> set:
+    """A module's ``__all__``, or (a module without one) the public names
+    it defines itself."""
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items() if not n.startswith("_")
+            and getattr(v, "__module__", None) == mod.__name__}
+
+
+@pytest.mark.parametrize("pkg", [
+    "api", "core", "graph", "serving", "streams", "training.step",
+    "training.optimizer", "training.compression", "data.synthetic", "data.pipeline",
+    "checkpoint.checkpointer", "launch.train"])
 def test_public_surface_covers_repros(pkg):
-    theirs = set(importlib.import_module(f"repro.{pkg}").__all__)
+    theirs = _public(importlib.import_module(f"repro.{pkg}"))
     ours = importlib.import_module(f"repro_torch.{pkg}")
-    assert theirs - set(ours.__all__) == set(LEFT_OUT.get(pkg, {}))
-    for name in ours.__all__:
+    assert theirs, pkg
+    assert theirs - _public(ours) == set(LEFT_OUT.get(pkg, {}))
+    for name in _public(ours):
         assert hasattr(ours, name), name
 
 
@@ -223,11 +236,52 @@ def test_lm_dry_run_counts_equal_the_cpu_step(shape, chips):
         assert rep.tensor_core_flops == 0  # the smoke config computes in fp32
 
 
+@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2-moe-a2.7b",
+                                  "deepseek-v2-lite-16b"])
+def test_lm_train_dry_run_counts_equal_the_cpu_step(name):
+    """The SMOKE ``train_4k`` step (forward, backward, AdamW) counts the
+    same on ``meta`` as on CPU tensors, backward ops and the update
+    included; remat (``cfg.remat``) adds one more forward of the blocks'
+    products up to the last one whose saved tensors the backward needs
+    (torch's checkpoint stops its recompute early): for Llama 2 x (the
+    blocks' parameters less each block's ``w_down``) x B x S FLOPs."""
+    counts = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(TCB.get_config(name, smoke=True), remat=remat)
+        shape = TA._shrink_shape(cfg, TCB.shapes_for(name)[0])
+        assert shape.name == "train_4k"
+        real = TA.build_with_cfg(name, cfg, shape, device=CPU, use_kernel=False)
+        meta = TA.build_with_cfg(name, cfg, shape, device="meta", use_kernel=False)
+        state = real.init(torch.Generator().manual_seed(0))
+        rep, c = D.count_step(real, state, D.abstract_inputs(real, device=CPU),
+                              mesh_name="cpu", chips=1)
+        mrep, mc = D.count_step(meta, D.abstract_state(meta), D.abstract_inputs(meta),
+                                mesh_name="meta", chips=1)
+        assert mc.totals() == c.totals()
+        assert mrep.memory_per_device["argument_gb"] == pytest.approx(
+            (D.state_bytes(state) + D.state_bytes(D.abstract_inputs(real, device=CPU)))
+            * 1e-9, rel=1e-12)
+        for op in ("_softmax_backward_data", "logsumexp", "sqrt"):  # bwd, loss, AdamW
+            assert op in c.by_op, op
+        assert 0 < rep.useful_flops_ratio < 1
+        counts[remat] = (c, cfg, real.shape.dims)
+    (c0, cfg, dims), (c1, _, _) = counts[False], counts[True]
+    extra = c1.by_op["mm"][1].flops - c0.by_op["mm"][1].flops
+    if name == "llama3.2-1b":
+        head = cfg.d_model * cfg.vocab  # tied
+        w_down = cfg.n_layers * cfg.d_ff * cfg.d_model
+        assert extra == (2 * (cfg.params_dense - head - w_down) * dims["global_batch"]
+                         * dims["seq_len"])
+    else:
+        assert extra > 0
+
+
 def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
     out = str(tmp_path)
     D.main(["--arch", "llama3.2-1b", "--shape", "prefill_32k", "--mesh", "both",
             "--out", out])
-    for arch, shape in (("yi-34b", "train_4k"), ("deepseek-v2-lite-16b", "train_4k"),
+    D.main(["--arch", "llama3.2-1b", "--shape", "train_4k", "--out", out])
+    for arch, shape in (("wide-deep", "train_batch"), ("gatedgcn", "full_graph_sm"),
                         ("gin-tu", "molecule"), ("llama3-405b", "long_500k")):
         D.main(["--arch", arch, "--shape", shape, "--out", out])
     with pytest.raises(SystemExit, match="1 dry-run cells failed"):
@@ -235,12 +289,18 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
                 "--tag", "bad", "--out", out])
     names = sorted(p.name for p in tmp_path.iterdir())
     assert names == [
-        "deepseek-v2-lite-16b__train_4k__skip.json", "gin-tu__molecule__skip.json",
+        "gatedgcn__full_graph_sm__skip.json", "gin-tu__molecule__skip.json",
         "llama3-405b__long_500k__skip.json",
         "llama3.2-1b__prefill_32k__multi.json",
         "llama3.2-1b__prefill_32k__single.json",
         "llama3.2-1b__prefill_32k__single__bad.FAILED.json",
-        "yi-34b__train_4k__skip.json"]
+        "llama3.2-1b__train_4k__single.json",
+        "wide-deep__train_batch__skip.json"]
+    train = json.loads((tmp_path / "llama3.2-1b__train_4k__single.json").read_text())
+    assert train["chips"] == 256 and train["model_flops"] == pytest.approx(
+        6.0 * TCB.get_config("llama3.2-1b").params_active * 256 * 4096, rel=1e-12)
+    # the backward and remat's recompute count: useful / counted well below 1
+    assert 0.5 < train["useful_flops_ratio"] < 0.8
     skips = {n: json.loads((tmp_path / n).read_text())["skip_reason"]
              for n in names if n.endswith("__skip.json")}
     for n, why in skips.items():

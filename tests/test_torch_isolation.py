@@ -55,7 +55,12 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.configs.yi_34b", "repro_torch.configs.llama3_405b",
                 "repro_torch.models.transformer.moe",
                 "repro_torch.configs.deepseek_v2_lite_16b",
-                "repro_torch.configs.qwen2_moe_a2_7b"):
+                "repro_torch.configs.qwen2_moe_a2_7b",
+                "repro_torch.training.step", "repro_torch.training.optimizer",
+                "repro_torch.training.compression", "repro_torch.training.tree",
+                "repro_torch.data.synthetic", "repro_torch.data.pipeline",
+                "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
+                "repro_torch.examples.train_lm_smoke"):
         assert new in mods, new
     script = (
         "import sys\n"
@@ -106,6 +111,9 @@ def test_entry_points_default_to_cuda():
     from repro_torch.serving import SimRankService
     from repro_torch.streams import SlidingWindowExpirer, frozen_window_handle
 
+    from repro_torch import arch
+    from repro_torch.launch.train import train
+
     src, dst, n = toy_graph()
     expirer = SlidingWindowExpirer(ttl=0.5)
     expirer.ingest([0.1], [0], [1])
@@ -118,6 +126,10 @@ def test_entry_points_default_to_cuda():
         lambda: SimRankService(GraphHandle.from_edges(src, dst, n)),
         lambda: frozen_window_handle(src, dst, n),
         lambda: expirer.expire_batches(1.0, batch_size=4, n=n),
+        # training: the bundle and the launcher target the card too
+        lambda: arch.build("llama3.2-1b", "train_4k", smoke=True, use_kernel=False),
+        lambda: train("llama3.2-1b", "train_4k", smoke=True, steps=1, ckpt_dir=None,
+                      ckpt_every=1),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

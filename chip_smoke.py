@@ -117,18 +117,36 @@ Phases (any failure exits non-zero before the result line):
    launcher's fail -> restart equal to a clean run; Qwen1.5-MoE and
    DeepSeek-V2-Lite at full width cut to 4 layers, 2 steps each with
    every router's gradient nonzero; ``flash_attention`` under grad
-   refused on the card;
+   refused on the card; then ``gnn_phase``: the five GNN configs
+   (gcn-cora, gin-tu, gatedgcn, nequip, gat-bonus) at their published
+   width and depth in fp32 (TF32 off), through ``arch.build_with_cfg``,
+   fed by ``PrefetchPipeline`` over the launcher's ``make_batch_fn``:
+   the GNN_REQUIRED cells (gcn-cora @ ogb_products, gatedgcn @
+   minibatch_lg, nequip and gin-tu @ molecule, gat-bonus @ full_graph_sm)
+   8 steps each, every other cell whose step fits 85 % of the card by the
+   dry-run's count on meta 2 steps (the others print that count), each
+   with ms per step, nodes/s, edges/s, peak memory, the model-FLOPs share
+   of the fp32 peak and no kernel launched, the loss finite and (required
+   cells) the loss of batch 0 falling; two steps from one state bitwise
+   equal under ``torch.use_deterministic_algorithms(True)`` (but at
+   ogb_products, ``GNN_NO_DETERMINISTIC``) and their default-mode gap; a
+   profiled and a counted step of gcn-cora @ ogb_products and nequip @
+   molecule; 2-layer full-width copies of GatedGCN and NequIP (forces
+   too) on the card against the CPU; gin-tu's fail -> restart bitwise
+   equal to a clean run in deterministic mode;
 7. the roofline (``roofline_phase``): the dry-run's records
    (``repro_torch.launch.dryrun`` on ``meta``: the probesim config uncut
    at 256 and 512 blocks, the ring at 256, the three dense LMs and the two
-   MoE configs at train_4k, prefill_32k and decode_32k), counted in niced processes on the host
+   MoE configs at train_4k, prefill_32k and decode_32k, the five GNN
+   configs at their four shapes), counted in niced processes on the host
    from the start, each with its three terms and memory per block; the
    op counter (``repro_torch.roofline``) on the card around the
    production cut's steps (each also counted on ``meta``: equal FLOPs,
    bytes and collective bytes), a HepPh drain of 8 and tree query, the
-   Llama, Qwen and DeepSeek prefills and the Llama train step, each run's
-   least time at most 105 % of its measured time; the kernel bounds at
-   their known values (lane_probe 142.4 MB, spmm_ell 18.56 MB).
+   Llama, Qwen and DeepSeek prefills, the Llama train step and the two
+   counted GNN steps, each run's least time at most 105 % of its measured
+   time; the kernel bounds at their known values (lane_probe 142.4 MB,
+   spmm_ell 18.56 MB).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -138,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3701,13 +3720,28 @@ TRAIN_MOE_BATCH = 1
 GRAD_CHECK_TOL = 1e-4  # of each tensor's largest value, fp32 on both sides
 
 
-def profile_train(label: str, fn) -> dict:
+# device time by aten op of an LM train step: the plain attention (its fp32
+# ``bmm`` products, masks, softmax and their backward), the bf16 GEMMs
+# (``mm``: every projection), the loss, copies and elementwise
+LM_PROFILE_GROUPS = {
+    "plain attention (bmm, masked_fill_, softmax and its backward)": (
+        "aten::bmm", "aten::masked_fill_", "aten::_softmax",
+        "aten::_softmax_backward_data"),
+    "bf16 GEMMs (mm)": ("aten::mm",),
+    "loss (logsumexp, gather, scatter, exp, sub)": (
+        "aten::logsumexp", "aten::gather", "aten::scatter_add_", "aten::scatter_",
+        "aten::exp", "aten::sub"),
+    "copies (copy_)": ("aten::copy_",),
+    "elementwise (mul, add, where, ...)": ("aten::mul", "aten::add", "aten::add_",
+                                          "aten::where", "aten::div", "aten::sqrt"),
+}
+
+
+def profile_train(label: str, fn, groups=LM_PROFILE_GROUPS) -> dict:
     """One train step under torch.profiler: the busy share, the device time
     and kernel launches of the step's forward and update ranges (the
-    backward is the rest), device time by aten op grouped into the plain
-    attention (its fp32 ``bmm`` products, masks, softmax and their
-    backward), the bf16 GEMMs (``mm``: every projection), copies and
-    elementwise, and the ops with the most device time by input shape.
+    backward is the rest), device time by aten op in ``groups`` (name ->
+    aten ops), and the ops with the most device time by input shape.
     Returns the numbers it logs."""
     import torch
     from torch.profiler import ProfilerActivity
@@ -3742,18 +3776,6 @@ def profile_train(label: str, fn) -> dict:
     by_op = {e.key: e.self_device_time_total / 1e3 for e in avg
              if e.device_type != cuda and e.key.startswith("aten::")
              and e.self_device_time_total > 0}
-    groups = {
-        "plain attention (bmm, masked_fill_, softmax and its backward)": (
-            "aten::bmm", "aten::masked_fill_", "aten::_softmax",
-            "aten::_softmax_backward_data"),
-        "bf16 GEMMs (mm)": ("aten::mm",),
-        "loss (logsumexp, gather, scatter, exp, sub)": (
-            "aten::logsumexp", "aten::gather", "aten::scatter_add_", "aten::scatter_",
-            "aten::exp", "aten::sub"),
-        "copies (copy_)": ("aten::copy_",),
-        "elementwise (mul, add, where, ...)": ("aten::mul", "aten::add", "aten::add_",
-                                              "aten::where", "aten::div", "aten::sqrt"),
-    }
     log(f"profiled {label}: wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), {launches} launches; forward "
         f"{fwd_ms:.1f} ms ({fwd_n} launches), update (AdamW) {upd_ms:.1f} ms "
@@ -4021,6 +4043,344 @@ def train_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The GNN family: training at full width and depth
+# ---------------------------------------------------------------------------
+
+GNN_ARCHS = ("gcn-cora", "gin-tu", "gatedgcn", "nequip", "gat-bonus")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+# the cells trained GNN_STEPS steps each, and who runs them; every other
+# (config, shape) cell whose step fits GNN_MEM_SHARE of the card (by the
+# dry-run's count on meta) trains GNN_OTHER_STEPS, uncut as well
+GNN_REQUIRED = {
+    ("gcn-cora", "ogb_products"): "full-batch GCN on ogbn-products",
+    ("gatedgcn", "minibatch_lg"): "minibatch training of a deep gated GNN",
+    ("nequip", "molecule"): "interatomic potentials",
+    ("gin-tu", "molecule"): "graph classification on TU datasets",
+    ("gat-bonus", "full_graph_sm"): "attention over Cora's edges",
+}
+GNN_STEPS = 8
+GNN_OTHER_STEPS = 2
+GNN_MEM_SHARE = 0.85
+GNN_COUNTED = (("gcn-cora", "ogb_products"), ("nequip", "molecule"))
+# cells whose deterministic twin steps are not run, and why (the GCN path's
+# twins run at its three other shapes)
+GNN_NO_DETERMINISTIC = {
+    ("gcn-cora", "ogb_products"): (
+        "torch's deterministic index_add_ is a sorted index_put_ that adds each "
+        "index's duplicates one after another, and 46 M padding edges aim at node "
+        "N - 1 (about 13 s a call on an H100)"),
+}
+GNN_LOSS_TOL = 1e-5  # fp32 loss, card against the CPU, of its value
+# device time by aten op of a GNN train step
+GNN_PROFILE_GROUPS = {
+    "scatter-adds (index_add_: the scatters and the gathers' backward)": (
+        "aten::index_add_", "aten::index_put_", "aten::_index_put_impl_"),
+    "gathers (index_select; on the card it runs as gather)": (
+        "aten::index_select", "aten::gather"),
+    "GEMMs (mm, bmm, addmm)": ("aten::mm", "aten::bmm", "aten::addmm"),
+    "elementwise (mul, add, where, ...)": ("aten::mul", "aten::add", "aten::add_",
+                                          "aten::where", "aten::div", "aten::sub"),
+}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside the block only
+    (``index_add_`` and the gathers' backward then sum in a fixed order)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def gnn_need_bytes(arch_id, cfg, shape) -> float:
+    """One train step's memory on one card, by the dry-run's count on meta:
+    the state and batch plus the counter's live peak."""
+    from repro_torch import arch
+    from repro_torch.launch import dryrun
+
+    b = arch.build_with_cfg(arch_id, cfg, shape, device="meta")
+    rep, _ = dryrun.count_step(b, dryrun.abstract_state(b), dryrun.abstract_inputs(b),
+                               mesh_name="meta", chips=1)
+    m = rep.memory_per_device
+    return (m["argument_gb"] + m["temp_gb"]) * 1e9
+
+
+def twin_gap(bundle, params, opt, batch) -> float:
+    """Two train steps from copies of one state on one batch: the largest
+    difference of their parameters, moments and losses."""
+    from repro_torch.training.tree import leaves, tree_map
+
+    outs = []
+    for _ in range(2):
+        p, o = tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad),
+                        (params, opt))
+        p, o, m = bundle.step(p, o, batch)
+        outs.append([t.detach().float() for t in leaves((p, o))] + [m["loss"]])
+    return max(float((a - b).abs().max()) for a, b in zip(*outs))
+
+
+def gnn_cell(arch_id: str, shape, dev, steps: int, who: str | None) -> dict:
+    """Train ``arch_id`` at its published width and depth on ``shape``
+    (uncut) through ``arch.build_with_cfg``, fed by ``PrefetchPipeline``
+    over the launcher's ``make_batch_fn``, with the kernels' launch counters
+    read around the steps.  Returns the bundle, its state, the batch maker
+    and the measured ms per step (steps 2 on)."""
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PrefetchPipeline
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.gnn.model import gnn_loss
+
+    counters = kernel_counts()
+    cfg = get_config(arch_id)
+    bundle = arch.build_with_cfg(arch_id, cfg, shape, device=dev)
+    specs = bundle.input_specs()["batch"]
+    N, E = specs["feats"].shape[0], specs["src"].shape[0]
+    G = arch._gnn_batch_shapes(cfg, shape)["G"]
+    t0 = time.perf_counter()
+    make = make_batch_fn(bundle, seed=0)
+    host0 = make(0)
+    build_s = time.perf_counter() - t0
+    live = int(host0["mask"].sum())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = bundle.init(gen)
+    first = {k: torch.from_numpy(v).to(dev) for k, v in host0.items()}
+
+    def loss0() -> float:
+        with torch.no_grad():
+            return float(gnn_loss(params, first, cfg, n_graphs=G)[0])
+
+    before = loss0()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    pipe = PrefetchPipeline(make, start_step=0, device=dev)
+    losses, step_s = [], []
+    try:
+        for step, batch in pipe:
+            if step >= steps:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = bundle.step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        pipe.close()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    after = loss0()
+    name = f"{arch_id} @ {shape.name}"
+    require(sum(launches.values()) == 0, f"{name} launched a kernel: {launches}")
+    require(all(math.isfinite(x) for x in losses + [before, after]),
+            f"{name}: losses {losses}, batch 0 {before} -> {after}")
+    require(int(opt["count"]) == steps, f"{name}: count {int(opt['count'])}")
+    require(peak <= GNN_MEM_SHARE * total,
+            f"{name}: peak {peak / 1e9:.2f} GB above {GNN_MEM_SHARE:.0%} of the card")
+    if who is not None:
+        require(after < before, f"{name}: the loss of batch 0 did not fall: "
+                f"{before} -> {after} (steps {losses})")
+    ms = sum(step_s[1:]) / len(step_s[1:]) * 1e3
+    mfu = bundle.model_flops() / (ms * 1e-3 * hw()["peak_flops_fp32"])
+    log(f"  {name} ({who or 'uncut, fits the card'}): N {N}, E {E} ({live} live, "
+        f"{1 - live / E:.1%} padding), d_feat {specs['feats'].shape[1]}, "
+        f"{cfg.n_layers} layers at d {cfg.d_hidden}; batch built on the host in "
+        f"{build_s:.2f} s; {steps} steps: losses "
+        + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; loss of batch 0 {before:.6f} -> {after:.6f}")
+    log(f"    step {ms:.3f} ms (steps 2-{steps}; step 1 {step_s[0] * 1e3:.1f} ms), "
+        f"{N / ms * 1e3:.4g} nodes/s, {E / ms * 1e3:.4g} edges/s ({live / ms * 1e3:.4g} "
+        f"live), peak {peak / 1e9:.3f} GB, model FLOPs {bundle.model_flops():.4g} a step "
+        f"= {mfu:.3%} of the fp32 peak; launches {launches}")
+    return dict(bundle=bundle, params=params, opt=opt, make=make, ms=ms,
+                launches=launches)
+
+
+def gnn_twins_and_counts(arch_id: str, shape_name: str, r: dict, dev,
+                         required: bool) -> None:
+    """A trained cell ``r`` (``gnn_cell``'s result): two steps from its
+    state, bitwise equal in deterministic mode (unless GNN_NO_DETERMINISTIC
+    says why not), and for a required cell their default-mode gap; for the
+    GNN_COUNTED cells a profiled and a counted step."""
+    import torch
+
+    bundle, params, opt = r["bundle"], r["params"], r["opt"]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in r["make"](GNN_STEPS).items()}
+    skip = GNN_NO_DETERMINISTIC.get((arch_id, shape_name))
+    if skip is None:
+        with deterministic():
+            gap = twin_gap(bundle, params, opt, batch)
+        require(gap == 0.0, f"{arch_id} @ {shape_name}: deterministic twin steps differ "
+                f"by {gap}")
+        said = "bitwise equal in deterministic mode"
+    else:
+        said = f"deterministic mode not run: {skip}"
+    if required:
+        said += f"; {twin_gap(bundle, params, opt, batch):.3g} apart in the default mode"
+    log(f"    two steps from one state: {said}")
+    if (arch_id, shape_name) in GNN_COUNTED:
+        name = f"{arch_id} @ {shape_name} train step"
+        profile_train(name, lambda: bundle.step(params, opt, batch), GNN_PROFILE_GROUPS)
+        count_on_card(name, lambda: bundle.step(params, opt, batch), r["ms"],
+                      model_flops=bundle.model_flops())
+
+
+def gnn_grad_check(arch_id: str, shape_name: str, dev) -> None:
+    """A 2-layer copy of ``arch_id`` at full width in fp32 on ``shape_name``
+    (the launcher's batch 0): ``gnn_loss`` and every gradient on the card
+    against the port on the CPU from the same weights, each gradient within
+    GRAD_CHECK_TOL of its tensor's largest value; NequIP's forces too,
+    over the atoms without a live self-loop (a loop's r_hat is rvec / 1e-6:
+    its atom's force is rounding of 1e6 x a message gradient; its gap is
+    printed)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.gnn.model import (
+        gnn_forward, gnn_from_params, gnn_loss, gnn_to_params)
+    from repro_torch.training.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch_id), n_layers=2)
+    shape = next(s for s in shapes_for(arch_id) if s.name == shape_name)
+    bundle = arch.build_with_cfg(arch_id, cfg, shape, device=dev)
+    G = arch._gnn_batch_shapes(cfg, shape)["G"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    card_p, _ = bundle.init(gen)
+    cpu_p = tree_map(lambda t: t.requires_grad_(True),
+                     gnn_from_params(gnn_to_params(card_p), cfg, device="cpu"))
+    host = make_batch_fn(bundle, seed=0)(0)
+    nequip = cfg.conv == "nequip"
+    out = {}
+    for where, p in (("card", card_p), ("cpu", cpu_p)):
+        t0 = time.perf_counter()
+        d = leaves(p)[0].device
+        batch = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+        loss, _ = gnn_loss(p, batch, cfg, n_graphs=G)
+        grads = torch.autograd.grad(loss, leaves(p), allow_unused=True,
+                                    materialize_grads=True)
+        forces = None
+        if nequip:
+            pos = batch["pos"].clone().requires_grad_(True)
+            energy = gnn_forward(p, dict(batch, pos=pos), cfg, n_graphs=G).sum()
+            forces = -torch.autograd.grad(energy, pos)[0].cpu()
+        out[where] = (float(loss.detach()), [g.cpu() for g in grads], forces,
+                      time.perf_counter() - t0)
+    (l_card, g_card, f_card, s_card), (l_cpu, g_cpu, f_cpu, s_cpu) = out["card"], out["cpu"]
+    name = f"{arch_id} (2 layers at full width, fp32) @ {shape_name}"
+    require(abs(l_card - l_cpu) <= GNN_LOSS_TOL * abs(l_cpu),
+            f"grad check {name}: loss {l_card} on the card, {l_cpu} on the CPU")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_card, g_cpu)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        require(err <= GRAD_CHECK_TOL * scale,
+                f"grad check {name}: gradient {i} differs by {err} (scale {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    extra = ""
+    if nequip:
+        src, dst, mask = host["src"], host["dst"], host["mask"]
+        loops = np.unique(src[(src == dst) & mask])
+        keep = np.ones(len(f_cpu), bool)
+        keep[loops] = False
+        keep_t = torch.from_numpy(keep)
+        scale = float(f_cpu[keep_t].abs().max())
+        err = float((f_card - f_cpu)[keep_t].abs().max())
+        loop_err = float((f_card - f_cpu)[~keep_t].abs().max()) if len(loops) else 0.0
+        require(err <= GRAD_CHECK_TOL * scale,
+                f"grad check {name}: forces differ by {err} (scale {scale})")
+        extra = (f"; forces within {err / scale:.2e} of their largest over "
+                 f"{int(keep.sum())} atoms ({len(loops)} atoms on a self-loop: "
+                 f"gap {loop_err:.3g}, scale {scale:.3g})")
+    log(f"  gradient check {name}: loss {l_card:.7f} on the card vs {l_cpu:.7f} on the "
+        f"CPU, {len(g_cpu)} gradients within {worst:.2e} of their largest values "
+        f"(limit {GRAD_CHECK_TOL:g}){extra}; card {s_card:.2f} s, CPU {s_cpu:.2f} s")
+
+
+def gnn_restart_check(dev) -> None:
+    """``launch.train.train`` on gin-tu @ molecule at full width under
+    ``deterministic()``: a run that fails at step 9 and restarts from step
+    8's checkpoint ends with the state of a clean 12-step run, bitwise."""
+    from repro_torch.launch.train import state_tree, train
+    from repro_torch.training.tree import leaves
+
+    with tempfile.TemporaryDirectory() as ck, deterministic():
+        kw = dict(smoke=False, steps=12, ckpt_every=4, device=dev)
+        try:
+            train("gin-tu", "molecule", ckpt_dir=ck, fail_at=9, **kw)
+        except RuntimeError as e:
+            require("injected failure at step 9" in str(e), str(e))
+        else:
+            require(False, "fail_at=9 did not fail")
+        resumed = train("gin-tu", "molecule", ckpt_dir=ck, **kw)
+        clean = train("gin-tu", "molecule", ckpt_dir=None, **kw)
+    require(resumed["steps"] == 3 and clean["steps"] == 12,
+            f"steps {resumed['steps']} / {clean['steps']}")
+    a = leaves(state_tree(*resumed["state"]))
+    b = leaves(state_tree(*clean["state"]))
+    d = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    require(d == 0.0, f"gin-tu restart differs from the clean run by {d}")
+    log("  restart: gin-tu @ molecule fails at step 9, restores step 8, 3 more steps: "
+        "bitwise equal to a clean 12-step run (deterministic mode)")
+
+
+def gnn_phase(dev) -> dict:
+    """The five GNN configs at full width and depth (the published
+    configs): the GNN_REQUIRED cells GNN_STEPS steps each and every other
+    cell that fits GNN_OTHER_STEPS, each with its twin steps; a profiled
+    and a counted step of the GNN_COUNTED cells; the gradient checks; the
+    restart.  Returns the kernels' launches of the training windows (the
+    path runs none)."""
+    import torch
+
+    from repro_torch.configs import get_config, shapes_for
+
+    t_phase = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32, "TF32 is on: the GNN path is fp32")
+    total = torch.cuda.mem_get_info()[1]
+    launches = dict.fromkeys(kernel_counts(), 0)
+    log(f"GNN training (fp32, random seeded weights; card: {card()}):")
+    cells = [(a, s) for a in GNN_ARCHS for s in shapes_for(a)]
+    cells.sort(key=lambda c: (c[0], c[1].name) not in GNN_REQUIRED)
+    for arch_id, shape in cells:
+        who = GNN_REQUIRED.get((arch_id, shape.name))
+        need = gnn_need_bytes(arch_id, get_config(arch_id), shape)
+        if need > GNN_MEM_SHARE * total:
+            require(who is None, f"{arch_id} @ {shape.name}: needs {need / 1e9:.1f} GB")
+            log(f"  {arch_id} @ {shape.name}: not run; one step needs {need / 1e9:.2f} GB "
+                f"on one card by the dry-run's count (state, batch and live peak), above "
+                f"{GNN_MEM_SHARE:.0%} of {total / 1e9:.1f} GB")
+            continue
+        r = gnn_cell(arch_id, shape, dev, GNN_STEPS if who else GNN_OTHER_STEPS, who)
+        for k, v in r["launches"].items():
+            launches[k] += v
+        gnn_twins_and_counts(arch_id, shape.name, r, dev, who is not None)
+        del r
+        torch.cuda.empty_cache()
+    gnn_grad_check("gatedgcn", "minibatch_lg", dev)
+    gnn_grad_check("nequip", "molecule", dev)
+    gnn_restart_check(dev)
+    log(f"GNN phase: {time.perf_counter() - t_phase:.1f} s (host batch builds "
+        f"included); card: {card()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The roofline: the dry-run on the host, the op counter on the card
 # ---------------------------------------------------------------------------
 
@@ -4028,9 +4388,11 @@ def train_phase(dev) -> dict:
 # counter counts work the card did not do
 ROOFLINE_SHARE_LIMIT = 1.05
 COUNTED: list = []  # one dict per counted run on the card
-# the dry-run's records (``repro_torch.launch.dryrun``), one process each,
-# counted on meta on the host while the card runs the other phases; the
-# ring at 512 blocks (4 x its 256-block time) is left to the CLI
+# the dry-run's records (``repro_torch.launch.dryrun``), one process each
+# (a GNN config's four shapes in one: a process's first meta count imports
+# torch's meta registrations), counted on meta on the host while the card
+# runs the other phases; the ring at 512 blocks (4 x its 256-block time) is
+# left to the CLI
 DRYRUN_CELLS = (
     ("probesim", "serve_batch", "single", ()),
     ("probesim", "serve_batch", "multi", ()),
@@ -4039,21 +4401,21 @@ DRYRUN_CELLS = (
     ("probesim", "serve_online", "single", ("--set", "push_mode=ring", "--tag", "ring")),
 ) + tuple((a, s, "both", ()) for a in ("llama3.2-1b", "yi-34b", "llama3-405b",
                                          "qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
-          for s in ("train_4k", "prefill_32k", "decode_32k"))
+          for s in ("train_4k", "prefill_32k", "decode_32k")) + tuple(
+    (a, GNN_SHAPES, "both", ()) for a in GNN_ARCHS)
 DRYRUN_TIMEOUT_S = 900
 
 
 def start_dryrun(out_dir: str) -> list:
     """Start every DRYRUN_CELLS cell as a niced CLI process on the host (meta
     tensors, no card); returns the processes, their commands and starts."""
-    import os
-
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
     procs = []
     for arch, shape, mesh, extra in DRYRUN_CELLS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-               "--shape", shape, "--mesh", mesh, "--out", out_dir, *extra]
+        one = () if shape is GNN_SHAPES else ("--shape", shape)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, *one,
+               "--mesh", mesh, "--out", out_dir, *extra]
         procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True,
                                        preexec_fn=lambda: os.nice(10)),
@@ -4164,8 +4526,6 @@ def roofline_phase(procs, out_dir: str, rows: dict) -> None:
     """The dry-run's records (each ported cell's three terms, bottleneck and
     memory per block), the kernel bounds against their known values, and every
     counted card run's share of its measured time."""
-    import os
-
     t_phase = time.perf_counter()
     for p, cmd, t0 in procs:
         try:
@@ -4177,7 +4537,8 @@ def roofline_phase(procs, out_dir: str, rows: dict) -> None:
     want = []
     for arch, shape, mesh, extra in DRYRUN_CELLS:
         tag = "__ring" if extra else ""
-        want += [f"{arch}__{shape}__{m}{tag}.json"
+        want += [f"{arch}__{s}__{m}{tag}.json"
+                 for s in (shape if shape is GNN_SHAPES else (shape,))
                  for m in (("single", "multi") if mesh == "both" else (mesh,))]
     have = sorted(os.listdir(out_dir))
     require(set(want) <= set(have) and not any("FAILED" in n for n in have),
@@ -4227,6 +4588,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # read once, at the first cuBLAS call: deterministic() needs it set
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     log(card())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -4292,17 +4655,20 @@ def run(procs, out_dir: str) -> int:
     lm_launches = lm_phase(dev)
     moe_launches = moe_phase(dev)
     train_launches = train_phase(dev)
+    gnn_launches = gnn_phase(dev)
     roofline_phase(procs, out_dir, rows)
 
     # each kernel's launches in the windows of the paths that run it; probe_push
     # is on no path (the reference calls it only from its tests), and training
-    # launches none (it runs the plain attention: the kernel has no backward)
+    # launches none (LM training runs the plain attention: the kernel has no
+    # backward; the GNN layers are scatter-adds, as the reference's)
     for name, row in rows.items():
         row["launches"] = (launches[name] + acc_launches[name]
                            + svc_launches[name] + shard_launches[name]
                            + prod_launches[name] + dyn_launches[name]
                            + stream_launches[name] + lm_launches[name]
-                           + moe_launches[name] + train_launches[name])
+                           + moe_launches[name] + train_launches[name]
+                           + gnn_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

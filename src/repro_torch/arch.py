@@ -19,9 +19,12 @@
 
 The LM family (dense GQA, and the MoE / MLA configs
 ``deepseek-v2-lite-16b`` and ``qwen2-moe-a2.7b``; training, prefill and
-decode) and the ProbeSim family (the paper's own config, ``probesim``) are
-ported.  The GNN and recsys families and the sharding specs wait (ROADMAP
-queue 1 item 14).  The port runs on the card unless asked otherwise:
+decode), the GNN family (training on the ``full_graph``, ``minibatch`` and
+``batched_graphs`` shapes: ``step(params, opt_state, batch)`` over
+``gnn_loss``, ``params`` the reference's tree of tensors) and the ProbeSim
+family (the paper's own config, ``probesim``) are ported.  The recsys
+family and the sharding specs wait (ROADMAP queue 1 item 14).  The port
+runs on the card unless asked otherwise:
 ``device`` defaults to "cuda" and ``use_kernel`` to True (the flash kernel
 on prefill; MLA's prefill needs ``use_kernel=False``: the kernel refuses
 its head widths).  The train bundle needs ``use_kernel=False`` and raises
@@ -39,6 +42,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import (
+    GNNConfig,
     ProbeSimConfig,
     ShapeSpec,
     TransformerConfig,
@@ -49,6 +53,10 @@ from repro_torch.configs.base import (
 from repro_torch.graph.structs import resolve_device
 
 NOT_PORTED = "ROADMAP queue 1 item 14"
+
+# the shape kinds a bundle trains on (its step takes and updates an
+# optimizer state)
+TRAIN_KINDS = ("train", "full_graph", "minibatch", "batched_graphs")
 
 
 @dataclass(frozen=True)
@@ -67,6 +75,11 @@ class ArchBundle:
     input_specs: Callable  # fn() -> dict[str, TensorSpec] (nested under "batch")
     model_flops: Callable  # fn() -> float
     notes: str = ""
+
+
+def _check_gen(gen: torch.Generator, device: torch.device) -> None:
+    if gen.device.type != device.type:
+        raise ValueError(f"generator on {gen.device}, bundle on {device}")
 
 
 def _make_optimizer(cfg):
@@ -95,10 +108,6 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
         attn = 4.0 * B * S * cfg.n_heads * cfg.d_head
         return 2.0 * cfg.params_active * B + attn
 
-    def gen_device(gen: torch.Generator):
-        if gen.device.type != device.type:
-            raise ValueError(f"generator on {gen.device}, bundle on {device}")
-
     if shape.kind == "train":
         if use_kernel:
             raise ValueError(
@@ -118,7 +127,7 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
             if device.type == "meta":
                 model = M.init_lm(None, cfg)
             else:
-                gen_device(gen)
+                _check_gen(gen, device)
                 model = M.init_lm(gen, cfg)
             model.requires_grad_(True)  # serving's leaves stay frozen
             return (model, opt.init(model))
@@ -137,7 +146,7 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
         def init(gen=None):
             if device.type == "meta":
                 return (M.init_lm(None, cfg),)
-            gen_device(gen)
+            _check_gen(gen, device)
             return (M.init_lm(gen, cfg),)
 
         def input_specs():
@@ -152,7 +161,7 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
         def init(gen=None):
             if device.type == "meta":
                 return (M.init_lm(None, cfg), M.init_cache(cfg, B, S, device))
-            gen_device(gen)
+            _check_gen(gen, device)
             return (M.init_lm(gen, cfg), M.init_cache(cfg, B, S, device))
 
         def input_specs():
@@ -161,6 +170,100 @@ def _lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
 
     else:
         raise ValueError(f"LM shape kind {shape.kind!r}")
+
+    return ArchBundle(
+        arch=arch, cfg=cfg, shape=shape, step=step, init=init,
+        input_specs=input_specs, model_flops=flops,
+    )
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+
+def _pad_to(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def _gnn_batch_shapes(cfg: GNNConfig, shape: ShapeSpec) -> dict:
+    from repro_torch.graph.sampler import block_shapes
+
+    d = shape.dims
+    if shape.kind == "full_graph":
+        N, E, df = d["n_nodes"], d["n_edges"], d["d_feat"]
+        G = 1
+    elif shape.kind == "minibatch":
+        bs = block_shapes(d["batch_nodes"], tuple(d["fanout"]))
+        N, E, df = bs["table"], sum(bs["edges"]), d["d_feat"]
+        G = 1
+    else:  # batched_graphs (molecule)
+        N = d["n_nodes"] * d["batch"]
+        E = d["n_edges"] * d["batch"]
+        df = d["d_feat"]
+        G = d["batch"]
+    # the reference's padding to 8,192 (its sharding divides every mesh
+    # extent); padding rows and edges are masked by the layers
+    if N > 8192:
+        N = _pad_to(N, 8192)
+    if E > 8192:
+        E = _pad_to(E, 8192)
+    return dict(N=N, E=E, df=df, G=G)
+
+
+def _gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
+                device: torch.device) -> ArchBundle:
+    from repro_torch.models.gnn.model import gnn_loss, init_gnn
+    from repro_torch.training.step import make_train_step
+    from repro_torch.training.tree import tree_map
+
+    if shape.kind not in TRAIN_KINDS:
+        raise ValueError(f"GNN shape kind {shape.kind!r}")
+    s = _gnn_batch_shapes(cfg, shape)
+    N, E, df, G = s["N"], s["E"], s["df"], s["G"]
+    opt = _make_optimizer(cfg)
+    is_nequip = cfg.conv == "nequip"
+    batched = shape.kind == "batched_graphs"
+
+    def loss_fn(params, batch):
+        return gnn_loss(params, batch, cfg, n_graphs=G)
+
+    step = make_train_step(loss_fn, opt)
+
+    def init(gen=None):
+        if device.type == "meta":
+            params = init_gnn(None, cfg, df)
+        else:
+            _check_gen(gen, device)
+            params = init_gnn(gen, cfg, df)
+        params = tree_map(lambda p: p.requires_grad_(True), params)
+        return (params, opt.init(params))
+
+    def input_specs():
+        f32, i32 = torch.float32, torch.int32
+        b = dict(feats=TensorSpec((N, df), f32), src=TensorSpec((E,), i32),
+                 dst=TensorSpec((E,), i32), mask=TensorSpec((E,), torch.bool))
+        if is_nequip:
+            b["pos"] = TensorSpec((N, 3), f32)
+            b["energy"] = TensorSpec((G,), f32)
+            if batched:
+                b["graph_ids"] = TensorSpec((N,), i32)
+        elif batched:
+            b["graph_ids"] = TensorSpec((N,), i32)
+            b["labels"] = TensorSpec((G,), i32)
+            b["label_mask"] = TensorSpec((G,), f32)
+        else:
+            b["labels"] = TensorSpec((N,), i32)
+            b["label_mask"] = TensorSpec((N,), f32)
+        return dict(batch=b)
+
+    def flops():
+        d = cfg.d_hidden
+        # messages ~ 2 E d, transforms ~ 2 N d^2 per layer (x3 for train)
+        per_layer = 2.0 * E * d + 2.0 * N * d * d
+        if is_nequip:
+            per_layer = 16 * 2.0 * E * d * 9 + 2.0 * N * d * d * 9
+        return 3.0 * cfg.n_layers * per_layer
 
     return ArchBundle(
         arch=arch, cfg=cfg, shape=shape, step=step, init=init,
@@ -279,6 +382,8 @@ def build_with_cfg(arch: str, cfg, shape: ShapeSpec, *, use_kernel: bool = True,
     if cfg.family == "lm":
         return _lm_bundle(arch, cfg, shape, use_kernel=use_kernel,
                           device=resolve_device(device))
+    if cfg.family == "gnn":
+        return _gnn_bundle(arch, cfg, shape, device=resolve_device(device))
     if cfg.family == "probesim":
         if mesh is None:
             from repro_torch.launch.mesh import ShardMesh
@@ -292,6 +397,13 @@ def _shrink_shape(cfg, shape: ShapeSpec) -> ShapeSpec:
     d = dict(shape.dims)
     if cfg.family == "lm":
         d.update(seq_len=min(d["seq_len"], 64), global_batch=min(d["global_batch"], 2))
+    elif cfg.family == "gnn":
+        if shape.kind == "full_graph":
+            d.update(n_nodes=128, n_edges=512, d_feat=24)
+        elif shape.kind == "minibatch":
+            d.update(n_nodes=256, n_edges=2048, batch_nodes=8, fanout=(3, 2), d_feat=24)
+        else:
+            d.update(batch=4, n_nodes=10, n_edges=20, d_feat=8)
     elif cfg.family == "probesim":
         d.update(queries=2, walk_chunk=16)
     else:

@@ -1,6 +1,9 @@
-"""Model configurations of the port (LM family; copies of ``repro.configs``)."""
+"""Model configurations of the port (LM and GNN families; copies of
+``repro.configs``)."""
 from repro_torch.configs.base import (
+    GNN_SHAPES,
     LM_SHAPES,
+    GNNConfig,
     MoEConfig,
     ShapeSpec,
     TransformerConfig,
@@ -8,5 +11,5 @@ from repro_torch.configs.base import (
     shapes_for,
 )
 
-__all__ = ["LM_SHAPES", "MoEConfig", "ShapeSpec", "TransformerConfig",
-           "get_config", "shapes_for"]
+__all__ = ["GNN_SHAPES", "GNNConfig", "LM_SHAPES", "MoEConfig", "ShapeSpec",
+           "TransformerConfig", "get_config", "shapes_for"]

@@ -1,14 +1,14 @@
-"""Config dataclasses and registry of the LM and ProbeSim families (copy of
-``repro.configs.base``).
+"""Config dataclasses and registry of the LM, GNN and ProbeSim families
+(copy of ``repro.configs.base``).
 
 Each ported architecture registers one module in this package exposing
 ``CONFIG`` (full scale, the published numbers) and ``SMOKE`` (reduced,
 CPU-runnable).  The dataclasses are the reference's, field for field, so a
 config compares equal across the two packages.  The LM configs (dense, MoE
-and MLA; trained and served) and ProbeSim are ported; the GNN and recsys
-configs wait for their slices (ROADMAP queue 1 item 14), but ``ARCH_IDS``,
-every family's shapes and ``family_of`` cover them, so a dry-run can name
-each cell it skips.
+and MLA; trained and served), the five GNN configs and ProbeSim are
+ported; the recsys config waits for its slice (ROADMAP queue 1 item 14),
+but ``ARCH_IDS``, every family's shapes and ``family_of`` cover it, so a
+dry-run can name each cell it skips.
 """
 from __future__ import annotations
 
@@ -111,6 +111,26 @@ class TransformerConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    conv: str  # "gcn" | "gin" | "gatedgcn" | "gat" | "nequip"
+    n_layers: int
+    d_hidden: int
+    d_feat: int = 0  # input feature dim (filled by shape)
+    n_classes: int = 16
+    aggregator: str = "sum"
+    # nequip
+    l_max: int = 2
+    n_rbf: int = 8
+    cutoff: float = 5.0
+    eps_learnable: bool = True  # GIN epsilon
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    node_shard: str = "all"  # "all" axes | "model" (the reference's sharding)
+    family: str = "gnn"
+
+
+@dataclass(frozen=True)
 class ProbeSimConfig:
     """The paper's own serving config (``configs/probesim.py``)."""
 
@@ -129,7 +149,7 @@ class ProbeSimConfig:
 @dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # "train" | "prefill" | "decode"
+    kind: str  # "train" | "prefill" | "decode" | "full_graph" | ...
     dims: dict[str, Any] = field(default_factory=dict)
 
 
@@ -203,18 +223,18 @@ _MODULE_OF = {
     "llama3-405b": "llama3_405b",
     "yi-34b": "yi_34b",
     "llama3.2-1b": "llama3_2_1b",
+    "gin-tu": "gin_tu",
+    "gcn-cora": "gcn_cora",
+    "gatedgcn": "gatedgcn",
+    "nequip": "nequip",
     "probesim": "probesim",
+    "gat-bonus": "gat_bonus",  # beyond the assigned ten
 }
 
-NOT_PORTED = (
-    "gin-tu", "gcn-cora", "gatedgcn", "nequip", "wide-deep", "gat-bonus",
-)
+NOT_PORTED = ("wide-deep",)
 
 # the family of each config not ported yet (the reference's ``cfg.family``)
-_FAMILY_OF_UNPORTED = {
-    "gin-tu": "gnn", "gcn-cora": "gnn", "gatedgcn": "gnn", "nequip": "gnn",
-    "gat-bonus": "gnn", "wide-deep": "recsys",
-}
+_FAMILY_OF_UNPORTED = {"wide-deep": "recsys"}
 
 _SHAPES_OF = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES,
               "probesim": PROBESIM_SHAPES}

@@ -13,6 +13,9 @@ Two device representations, both capacity-padded:
   at construction, so sentinel gathers and scatters need no per-push
   masking (``push_ell_padded``).
 
+``CsrGraph`` is a host CSR (numpy) that the GNN neighbour sampler
+(``graph/sampler.py``) reads.
+
 Node ids are stored int32, as in the JAX package; they are cast to int64
 only where torch indexing needs it.  Every constructor takes an explicit
 ``device`` (default ``"cuda"``); the CPU is used only when asked for.
@@ -226,6 +229,38 @@ def ell_from_edges(
         n=int(n),
         k_max=int(k_max),
     )
+
+
+class CsrGraph:
+    """Host-side CSR (numpy; a copy of ``repro.graph.structs.CsrGraph``).
+    indptr[n+1], indices[m] sorted by row."""
+
+    def __init__(self, indptr: np.ndarray, indices: np.ndarray, n: int):
+        self.indptr = np.asarray(indptr, dtype=np.int64)
+        self.indices = np.asarray(indices, dtype=np.int32)
+        self.n = int(n)
+
+    @property
+    def m(self) -> int:
+        return int(self.indices.shape[0])
+
+    def degree(self) -> np.ndarray:
+        return np.diff(self.indptr).astype(np.int32)
+
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.indices[self.indptr[v] : self.indptr[v + 1]]
+
+
+def csr_from_edges(src: np.ndarray, dst: np.ndarray, n: int, by: str = "dst") -> CsrGraph:
+    """Host CSR grouped by ``dst`` (in-CSR, default) or ``src`` (out-CSR)."""
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    key, val = (dst, src) if by == "dst" else (src, dst)
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=n)[:n]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return CsrGraph(indptr, val[order], n)
 
 
 def graph_to_host_edges(g: Graph) -> tuple[np.ndarray, np.ndarray]:

@@ -22,14 +22,20 @@ bundle (the kernel has no backward).  A train cell counts the whole step
 with autograd on: the forward, the backward with each block recomputed
 (``cfg.remat``), and the AdamW update.
 
-A cell the port does not have yet (the GNN archs and ``wide-deep``) writes
-``{arch}__{shape}__skip.json`` with the ``NotImplementedError``'s words
-(they name ROADMAP queue 1 item 14), as does an inapplicable cell
-(``arch.is_applicable``) unless ``--include-skipped``.  A cell that fails writes
+A GNN cell is a train step (``full_graph``, ``minibatch`` and
+``batched_graphs`` shapes), counted with autograd on like ``train_4k``;
+its record, like an LM's, divides the step's counts evenly over the
+mesh's chips (no GNN sharding specs).  A cell the port does not have yet
+(``wide-deep``) writes ``{arch}__{shape}__skip.json`` with the
+``NotImplementedError``'s words (they name ROADMAP queue 1 item 14), as
+does an inapplicable cell (``arch.is_applicable``) unless
+``--include-skipped``.  A cell that fails writes
 ``{arch}__{shape}__{mesh}.FAILED.json`` and the run exits non-zero.
 
-Usage:
+Usage (``--arch`` without ``--shape``: every shape of the arch, in one
+process):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-405b --shape prefill_32k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gcn-cora --mesh both
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch probesim --shape serve_batch --mesh single --set push_mode=ring --tag ring
 """
@@ -139,7 +145,7 @@ def count_step(bundle, state, inputs, *, mesh_name: str,
     batch = inputs["batch"]
     extra = {k: v for k, v in inputs.items() if k != "batch"}
     counter = ra.OpCounter()
-    mode = (torch.enable_grad() if bundle.shape.kind == "train"
+    mode = (torch.enable_grad() if bundle.shape.kind in arch_mod.TRAIN_KINDS
             else torch.inference_mode())
     with mode, counter:
         out = bundle.step(*state, batch, **extra)
@@ -254,8 +260,9 @@ def main(argv=None) -> None:
     if args.all:
         cells = [(a, s.name) for a in ARCH_IDS for s in shapes_for(a)]
     else:
-        assert args.arch and args.shape, "--arch/--shape or --all"
-        cells = [(args.arch, args.shape)]
+        assert args.arch, "--arch [--shape] or --all"
+        shapes = [args.shape] if args.shape else [s.name for s in shapes_for(args.arch)]
+        cells = [(args.arch, s) for s in shapes]
 
     def skip(a, s, why):
         print(f"SKIP {a} x {s}: {why}")

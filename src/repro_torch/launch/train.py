@@ -3,10 +3,11 @@ device with the full fault-tolerance loop: checkpoint / restart, async
 saves, deterministic data, failure injection for testing.
 
 The LM family trains (``arch.build(..., use_kernel=False)``: the flash
-kernel has no backward); the GNN and recsys families wait for their
-slices (ROADMAP queue 1 item 14).  Runs on the card unless ``device`` says
-otherwise.  Checkpoints hold ``state_tree(model, opt_state)``: the
-reference's ``(params, opt_state)`` pytree, stage leaves stacked, so the
+kernel has no backward) and so does the GNN family; the recsys family
+waits for its slice (ROADMAP queue 1 item 14).  Runs on the card unless
+``device`` says otherwise.  Checkpoints hold ``state_tree(model,
+opt_state)``: the reference's ``(params, opt_state)`` pytree (the LM's
+stage leaves stacked; a GNN's tree is the reference's already), so the
 two packages restore each other's checkpoints.
 
 Usage:
@@ -27,14 +28,61 @@ from repro_torch.data import synthetic
 from repro_torch.data.pipeline import PrefetchPipeline
 from repro_torch.graph.structs import resolve_device
 from repro_torch.models.transformer import model as M
+from repro_torch.training.tree import leaves, tree_map
+
+
+def _fit_specs(b: dict, specs: dict) -> dict:
+    """Each array of ``b`` named in ``specs`` zero-padded, then cut, to its
+    spec's shape (the reference's pad-to-spec)."""
+    out = {}
+    for k, sds in specs.items():
+        arr = b[k]
+        pad = [(0, sds.shape[i] - arr.shape[i]) for i in range(arr.ndim)]
+        out[k] = np.pad(arr, pad)[tuple(slice(0, n) for n in sds.shape)]
+    return out
+
+
+def _gnn_batch_fn(bundle, seed: int):
+    """The reference's GNN batches: a ``molecule_batch`` a step, or one
+    ``gnn_full_graph_batch`` for every step (it depends on the seed alone:
+    the reference rebuilds the same graph each step, the port builds it
+    here, once, and hands every step the same arrays, which callers must
+    not write), with NequIP's positions and energy drawn a step."""
+    cfg, d = bundle.cfg, bundle.shape.dims
+    specs = bundle.input_specs()["batch"]
+    nequip = cfg.conv == "nequip"
+    if bundle.shape.kind == "batched_graphs":
+        def fn(step):
+            return _fit_specs(synthetic.molecule_batch(
+                seed, step, d["batch"], d["n_nodes"], d["n_edges"], d["d_feat"],
+                with_pos=nequip), specs)
+
+        return fn
+
+    n, e = specs["feats"].shape[0], specs["src"].shape[0]
+    b = synthetic.gnn_full_graph_batch(seed, n, e, d["d_feat"], cfg.n_classes)
+    graph = _fit_specs(b, {k: v for k, v in specs.items() if k in b})
+    if not nequip:
+        return lambda step: dict(graph)
+
+    def fn(step):
+        rng = np.random.default_rng((seed, step))
+        per_step = dict(pos=rng.normal(size=(n, 3)).astype(np.float32) * 2,
+                        energy=rng.normal(size=(1,)).astype(np.float32))
+        return dict(graph, **_fit_specs(per_step, {k: specs[k] for k in per_step}))
+
+    return fn
+
 
 def make_batch_fn(bundle, seed: int):
     """step -> the step's host batch (numpy), (seed, step) deterministic."""
     cfg = bundle.cfg
     shape = bundle.shape
-    if cfg.family in ("gnn", "recsys"):
+    if cfg.family == "recsys":
         raise NotImplementedError(
             f"training family {cfg.family!r} is not ported ({arch_mod.NOT_PORTED})")
+    if cfg.family == "gnn":
+        return _gnn_batch_fn(bundle, seed)
     if cfg.family != "lm":
         raise ValueError(f"no training loop for family {cfg.family}")
     B = shape.dims["global_batch"]
@@ -46,26 +94,43 @@ def make_batch_fn(bundle, seed: int):
     return fn
 
 
+def _host(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().to("cpu", copy=True)
+
+
 def state_tree(model, opt_state) -> tuple:
     """``(params, opt_state)`` in the reference's layout as host copies:
-    ``params`` its ``init_lm`` tree (stage leaves stacked), ``opt_state``
-    ``dict(count=, mu=, nu=)`` with the moments stacked alike."""
-    def host(named):
-        return M.stack_layers({k: v.detach().to("cpu", copy=True)
-                               for k, v in named.items()})
+    ``params`` its ``init_lm`` tree (stage leaves stacked; a GNN's tree as
+    it is), ``opt_state`` ``dict(count=, mu=, nu=)`` with the moments laid
+    out alike."""
+    if isinstance(model, torch.nn.Module):
+        params = dict(model.named_parameters())
 
-    params = host(dict(model.named_parameters()))
-    return params, dict(count=opt_state["count"].detach().to("cpu", copy=True),
-                        mu=host(opt_state["mu"]), nu=host(opt_state["nu"]))
+        def host(named):
+            return M.stack_layers({k: _host(v) for k, v in named.items()})
+    else:
+        params = model
+
+        def host(tree):
+            return tree_map(_host, tree)
+
+    return host(params), dict(count=_host(opt_state["count"]),
+                              mu=host(opt_state["mu"]), nu=host(opt_state["nu"]))
 
 
 def load_state_tree(model, opt_state, tree) -> None:
     """Write a reference-layout ``(params, opt_state)`` tree into ``model``
     and ``opt_state`` in place (the inverse of ``state_tree``)."""
     params, opt = tree
-    M.unstack_layers(params, dict(model.named_parameters()))
-    M.unstack_layers(opt["mu"], opt_state["mu"])
-    M.unstack_layers(opt["nu"], opt_state["nu"])
+    if isinstance(model, torch.nn.Module):
+        M.unstack_layers(params, dict(model.named_parameters()))
+        M.unstack_layers(opt["mu"], opt_state["mu"])
+        M.unstack_layers(opt["nu"], opt_state["nu"])
+    else:
+        with torch.no_grad():
+            for dst, src in zip(leaves((model, opt_state["mu"], opt_state["nu"])),
+                                leaves((params, opt["mu"], opt["nu"]))):
+                dst.copy_(torch.from_numpy(np.array(src)))
     count = opt["count"]
     if not isinstance(count, torch.Tensor):
         count = torch.from_numpy(np.array(count))
@@ -78,7 +143,7 @@ def train(arch_id: str, shape_name: str, *, smoke: bool, steps: int,
     dev = resolve_device(device)
     bundle = arch_mod.build(arch_id, shape_name, smoke=smoke, use_kernel=False,
                             device=dev)
-    if bundle.shape.kind != "train":
+    if bundle.shape.kind not in arch_mod.TRAIN_KINDS:
         raise ValueError(f"{shape_name} is not a training shape")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

@@ -34,7 +34,12 @@ The rules (one op at a time):
   as many elements as it writes; ``index_add_`` and ``index_put_`` read
   their sources and indices and read-modify-write (or, without
   accumulation, write) the addressed elements; a ``scatter`` without a
-  reduction reads its index and source and writes as many elements.  Views, metadata ops,
+  reduction reads its index and source and writes as many elements;
+  ``scatter_add`` and ``scatter_reduce`` (any reduction: the GNN's
+  segment max, the backward of a ``gather``) count one operation per
+  source element, read the index and the source, and in place
+  read-modify-write one addressed element per source element, out of
+  place read ``self`` and write the whole output instead.  Views, metadata ops,
   allocations without writes (``empty``) and a ``.to`` that returns its
   input count nothing.
 * **Kernels.** The hand-written kernels' public ops (``lane_probe_level``,
@@ -220,6 +225,8 @@ _FREE = frozenset((
 ))
 _GATHERS = frozenset(("index", "_unsafe_index", "index_select", "gather",
                       "embedding"))
+_SCATTERS = frozenset(("scatter_add", "scatter_add_", "scatter_reduce",
+                       "scatter_reduce_"))
 
 
 def _distinct_elems(t: Tensor) -> int:
@@ -272,6 +279,14 @@ def op_work(func, args, kwargs, out, ins=None, outs=None) -> Work:
         rmw = source.numel() * self_.element_size() * 2
         return Work(flops=source.numel(),
                     bytes=_nbytes(index) + _nbytes(source) + rmw)
+    if name in _SCATTERS:
+        self_, index, src = args[0], args[2], args[3]
+        nbytes = _nbytes(index) + _nbytes(src)
+        if name.endswith("_"):  # read-modify-write of the addressed elements
+            nbytes += 2 * src.numel() * self_.element_size()
+        else:
+            nbytes += _nbytes(self_) + sum(_nbytes(t) for t in outs)
+        return Work(flops=src.numel(), bytes=nbytes)
     if name in ("scatter", "scatter_") and len(args) == 4 and not kwargs:
         index, src = args[2], args[3]
         if isinstance(src, Tensor):

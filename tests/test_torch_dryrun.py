@@ -98,9 +98,7 @@ def test_count_params_equals_repro(cfg):
 LEFT_OUT = {
     "core": {"shard_epoch_specs": "jax only: sharding specs of the mesh epoch",
              "epoch_pipeline": "removed: the fused epoch step replaces it"},
-    "graph": {"apply_update_batch_jit": "jax only: a jitted wrapper",
-              "CsrGraph": "ROADMAP queue 1 item 14",
-              "csr_from_edges": "ROADMAP queue 1 item 14"},
+    "graph": {"apply_update_batch_jit": "jax only: a jitted wrapper"},
 }
 
 
@@ -289,7 +287,7 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
                 "--tag", "bad", "--out", out])
     names = sorted(p.name for p in tmp_path.iterdir())
     assert names == [
-        "gatedgcn__full_graph_sm__skip.json", "gin-tu__molecule__skip.json",
+        "gatedgcn__full_graph_sm__single.json", "gin-tu__molecule__single.json",
         "llama3-405b__long_500k__skip.json",
         "llama3.2-1b__prefill_32k__multi.json",
         "llama3.2-1b__prefill_32k__single.json",
@@ -319,4 +317,5 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
         sys.argv = argv
     text = capsys.readouterr().out
     assert "| llama3.2-1b | prefill_32k | single |" in text
-    assert "| gin-tu | molecule | config 'gin-tu' is not ported yet" in text
+    assert "| wide-deep | train_batch | config 'wide-deep' is not ported yet" in text
+    assert "| gin-tu | molecule | single |" in text

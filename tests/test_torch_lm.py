@@ -62,7 +62,7 @@ def test_llama_configs_pinned_to_repro(which):
 
 def test_unported_configs_and_kinds_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        t_base.get_config("gin-tu")
+        t_base.get_config("wide-deep")
     # the train kind is ported; it refuses the flash kernel (no backward)
     with pytest.raises(ValueError, match="no backward"):
         t_arch.build("llama3.2-1b", "train_4k", smoke=True, device=CPU)

@@ -200,13 +200,13 @@ def test_make_batch_fn_and_refusals():
     _equal(fn(7), j_syn.lm_batch(3, 7, 2, 64, tb.cfg.vocab))
 
     class Fake:
-        cfg = type("C", (), {"family": "gnn"})()
+        cfg = type("C", (), {"family": "recsys"})()
         shape = None
 
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         TL.make_batch_fn(Fake, seed=0)
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        TL.train("gin-tu", "molecule", smoke=True, steps=1, ckpt_dir=None,
+        TL.train("wide-deep", "train_batch", smoke=True, steps=1, ckpt_dir=None,
                  ckpt_every=1, device=CPU)
     with pytest.raises(ValueError, match="not a training shape"):
         TL.train("llama3.2-1b", "prefill_32k", smoke=True, steps=1, ckpt_dir=None,

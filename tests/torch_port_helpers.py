@@ -137,3 +137,72 @@ def close_to_plain(out, ref, dtype):
     step = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=1e-30))) - bits)
     bad = (o - r).abs() > torch.maximum(step, torch.full_like(step, 1e-6))
     assert not bool(bad.any()), float((o - r).abs().max())
+
+
+def rel_close(got, want, tol, what=""):
+    """max |got - want| <= tol * max |want| (each tensor against its own
+    largest magnitude); ``got`` a tensor or array, ``want`` array-like."""
+    g = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    w = np.asarray(want, np.float64)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    err = float(np.abs(g.astype(np.float64) - w).max()) if w.size else 0.0
+    scale = float(np.abs(w).max()) if w.size else 0.0
+    assert err <= tol * scale, f"{what}: {err} > {tol} * {scale}"
+
+
+def gnn_params(jparams, cfg):
+    """repro's ``init_gnn`` tree carried into the port on the CPU with every
+    leaf requiring grad (``gnn_from_params``)."""
+    from repro_torch.models.gnn.model import gnn_from_params
+    from repro_torch.training.tree import tree_map
+
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    return tree_map(lambda t: t.requires_grad_(True), gnn_from_params(tree, cfg, CPU))
+
+
+def gnn_bundle_steps_equal_repro(arch, shape):
+    """The GNN bundle of (arch, shape) at smoke size against repro's (see
+    ``tests/test_torch_gnn_bundles.py``).  The moments are not held leaf by
+    leaf: where a NequIP gradient is the small difference of large terms
+    (the l > 0 paths at ``minibatch_lg``, about 1e-5 of its inputs) both
+    packages' fp32 gradients are about 1e-4 of it from a float64 run, so
+    the moments of such a leaf differ by that much; AdamW's normalized
+    step keeps the parameters within 1e-5."""
+    import repro.arch as JA
+    from repro.launch import train as JLT
+
+    import repro_torch.arch as TA
+    from repro_torch.launch import train as TLT
+    from repro_torch.training.tree import leaves
+
+    jb = JA.build(arch, shape, smoke=True)
+    tb = TA.build(arch, shape, smoke=True, device=CPU)
+    assert (tb.shape.name, tb.shape.kind) == (jb.shape.name, jb.shape.kind)
+    assert tb.shape.dims == jb.shape.dims
+    jspecs = jb.input_specs()["batch"]
+    tspecs = tb.input_specs()["batch"]
+    assert list(tspecs) == list(jspecs)
+    for k, s in tspecs.items():
+        assert s.shape == jspecs[k].shape, k
+        assert str(s.dtype).removeprefix("torch.") == str(jspecs[k].dtype), k
+    assert tb.model_flops() == jb.model_flops()
+
+    params, opt = jb.init(jax.random.key(0))
+    tparams, topt = tb.init(torch.Generator().manual_seed(0))
+    TLT.load_state_tree(tparams, topt, jax.tree_util.tree_map(np.asarray, (params, opt)))
+    jmake, tmake = JLT.make_batch_fn(jb, 0), TLT.make_batch_fn(tb, 0)
+    jstep = jax.jit(jb.step)
+    for i in range(3):
+        jbatch, tbatch = jmake(i), tmake(i)
+        for k in jbatch:
+            np.testing.assert_array_equal(tbatch[k], jbatch[k])
+        params, opt, jm = jstep(params, opt, jbatch)
+        tparams, topt, tm = tb.step(tparams, topt,
+                                    {k: torch.from_numpy(v) for k, v in tbatch.items()})
+        rel_close(tm["loss"], jm["loss"], 1e-5, f"step {i} loss")
+        rel_close(tm["grad_norm"], jm["grad_norm"], 1e-4, f"step {i} grad norm")
+    assert int(topt["count"]) == int(opt["count"]) == 3
+    paths = [jax.tree_util.keystr(p)
+             for p, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
+    for path, a, w in zip(paths, leaves(tparams), jax.tree_util.tree_leaves(params)):
+        rel_close(a, np.asarray(w), 1e-5, path)

@@ -133,20 +133,38 @@ Phases (any failure exits non-zero before the result line):
    profiled and a counted step of gcn-cora @ ogb_products and nequip @
    molecule; 2-layer full-width copies of GatedGCN and NequIP (forces
    too) on the card against the CPU; gin-tu's fail -> restart bitwise
-   equal to a clean run in deterministic mode;
+   equal to a clean run in deterministic mode; then ``recsys_phase``:
+   Wide & Deep (``wide-deep``, arXiv:1606.07792) at the published width in
+   fp32 through ``arch.build_with_cfg``: ``train_batch`` uncut (batch
+   65,536, 1.32e9 parameters), step 0's loss and gradients on a 4,096 cut
+   against the CPU, 8 AdamW steps fed by ``PrefetchPipeline`` over the
+   launcher's ``make_batch_fn`` (no kernel launched, the loss of batch 0
+   falling; ms per step, examples/s, peak memory, the fp32 model-FLOPs
+   share), twin steps bitwise in deterministic mode, a profiled and a
+   counted step, the launcher's fail -> restart at SMOKE bitwise; ``serve_p99`` (p50 / p99 over 200 batches) and
+   ``serve_bulk`` (examples/s, a counted batch) against a plain fp32
+   forward on the CPU over a slice of rows; ``retrieval_cand`` (1,000,000
+   candidates padded to 1,007,616; ms a query) against a float64
+   recomputation, ids equal where untied; and the retrieval example's
+   pipeline (``repro_torch.examples.simrank_recsys_retrieval``) at
+   MovieLens-1M's counts: its interaction stream through session epochs
+   (the leading ``ML1M_TICKS`` ticks), both mirrors bitwise against a
+   rebuild of the live window, a top-k query from the hottest item against
+   the same query with the kernel off, and the full-width re-rank against
+   the plain forward, lane_probe's launches counted;
 7. the roofline (``roofline_phase``): the dry-run's records
    (``repro_torch.launch.dryrun`` on ``meta``: the probesim config uncut
    at 256 and 512 blocks, the ring at 256, the three dense LMs and the two
    MoE configs at train_4k, prefill_32k and decode_32k, the five GNN
-   configs at their four shapes), counted in niced processes on the host
-   from the start, each with its three terms and memory per block; the
-   op counter (``repro_torch.roofline``) on the card around the
-   production cut's steps (each also counted on ``meta``: equal FLOPs,
-   bytes and collective bytes), a HepPh drain of 8 and tree query, the
-   Llama, Qwen and DeepSeek prefills, the Llama train step and the two
-   counted GNN steps, each run's least time at most 105 % of its measured
-   time; the kernel bounds at their known values (lane_probe 142.4 MB,
-   spmm_ell 18.56 MB).
+   configs and wide-deep at their four shapes), counted in niced
+   processes on the host from the start, each with its three terms and
+   memory per block; the op counter (``repro_torch.roofline``) on the card
+   around the production cut's steps (each also counted on ``meta``:
+   equal FLOPs, bytes and collective bytes), a HepPh drain of 8 and tree
+   query, the Llama, Qwen and DeepSeek prefills, the Llama train step, the
+   two counted GNN steps, the Wide & Deep train step and serve_bulk batch,
+   each run's least time at most 105 % of its measured time; the kernel
+   bounds at their known values (lane_probe 142.4 MB, spmm_ell 18.56 MB).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4381,6 +4399,478 @@ def gnn_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The recsys family: Wide & Deep at full width, and the retrieval pipeline
+# ---------------------------------------------------------------------------
+
+RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+RECSYS_STEPS = 8
+RECSYS_GRAD_BATCH = 4096  # the gradient check's batch, cut from 65,536
+RECSYS_TOL = 1e-5  # fp32, of each tensor's (or score list's) largest value
+RECSYS_P99_BATCHES = 200
+RECSYS_BULK_REPS = 5
+RECSYS_ROWS_CHECKED = 512  # serve rows held against the plain forward on the CPU
+RECSYS_QUERY_REPS = 50
+# MovieLens-1M's published counts (GroupLens): users, items, ratings; the
+# generator's skew flattened to alpha 0.9 (its default 1.8 gives the top item
+# 312,916 of the edges; at 0.9 the top item is rated by every user)
+ML1M = (6_040, 3_706, 1_000_209)
+ML1M_ALPHA = 0.9
+ML1M_HORIZON = 2.0  # the example's virtual seconds
+ML1M_TICKS = 9  # the leading ticks streamed (None: the whole stream)
+# device time by aten op of a Wide & Deep train step
+RECSYS_PROFILE_GROUPS = {
+    "gathers (index_select)": ("aten::index_select", "aten::gather", "aten::index"),
+    "gathers' backward (index_add_)": ("aten::index_add_",),
+    "fp32 GEMMs (mm, addmm)": ("aten::mm", "aten::addmm"),
+    "elementwise (AdamW's leaves and the rest: mul, add, div, sqrt, sub, ...)": (
+        "aten::mul", "aten::add", "aten::add_", "aten::div", "aten::sqrt",
+        "aten::sub", "aten::pow", "aten::where", "aten::copy_", "aten::clamp"),
+    "reductions (sum: the clip's norm, the wide term)": ("aten::sum",),
+}
+
+
+def plain_widedeep(params, batch, cfg):
+    """Wide & Deep's logits, written out plainly in fp32 on the CPU: the
+    batch's rows of the tables read on the card by indexing, the rest on
+    the host (ids in range)."""
+    import torch
+
+    ids = batch["sparse_ids"].long()
+    fields = torch.arange(cfg.n_sparse, device=ids.device)[None, :]
+    emb = params["embed"][fields, ids].detach().cpu()  # [B, F, D]
+    wide = params["wide"][fields, ids].detach().cpu().sum(dim=1)
+    dense = batch["dense"].cpu()
+    host = {k: params[k].detach().cpu() for k in ("head", "wide_dense", "bias")}
+    x = torch.cat([emb.reshape(len(ids), -1), dense], dim=1)
+    for layer in params["mlp"]:
+        x = torch.relu(x @ layer["w"].detach().cpu() + layer["b"].detach().cpu())
+    return (x @ host["head"])[:, 0] + wide + (dense @ host["wide_dense"])[:, 0] \
+        + host["bias"]
+
+
+def close_to_plain(out, ref, what) -> float:
+    """max |out - ref| <= RECSYS_TOL * max |ref|; returns the gap over the
+    scale."""
+    out, ref = out.detach().cpu().double(), ref.detach().cpu().double()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    require(err <= RECSYS_TOL * scale, f"{what}: {err} apart (scale {scale})")
+    return err / scale
+
+
+def recsys_grad_check(bundle, params, host0, dev) -> None:
+    """Step 0's loss and every gradient at full width on a batch cut to
+    RECSYS_GRAD_BATCH: the card against the port on the CPU from the same
+    weights, each within RECSYS_TOL of its tensor's largest value."""
+    import torch
+
+    from repro_torch.models.recsys.widedeep import widedeep_loss
+    from repro_torch.training.tree import leaves, tree_map
+
+    cfg = bundle.cfg
+    host = {k: v[:RECSYS_GRAD_BATCH] for k, v in host0.items()}
+    cpu_p = tree_map(lambda t: t.detach().cpu().requires_grad_(True), params)
+    out = {}
+    for where, p in (("card", params), ("cpu", cpu_p)):
+        t0 = time.perf_counter()
+        d = leaves(p)[0].device
+        loss, _ = widedeep_loss(p, {k: torch.from_numpy(v).to(d) for k, v in host.items()},
+                                cfg)
+        # compared on the card: the embed table's gradient is 5.12 GB
+        grads = [g.to(dev) for g in torch.autograd.grad(loss, leaves(p))]
+        out[where] = (float(loss.detach()), grads, time.perf_counter() - t0)
+        del grads
+    del cpu_p
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    require(abs(l_card - l_cpu) <= RECSYS_TOL * abs(l_cpu),
+            f"wide-deep grad check: loss {l_card} on the card, {l_cpu} on the CPU")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_card, g_cpu)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        require(scale > 0 and err <= RECSYS_TOL * scale,
+                f"wide-deep grad check: gradient {i} differs by {err} (scale {scale})")
+        worst = max(worst, err / scale)
+    log(f"  gradient check (full width, batch {RECSYS_GRAD_BATCH}, step 0): loss "
+        f"{l_card:.7f} on the card vs {l_cpu:.7f} on the CPU, {len(g_cpu)} gradients "
+        f"within {worst:.2e} of their largest values (limit {RECSYS_TOL:g}); card "
+        f"{s_card:.2f} s, CPU {s_cpu:.2f} s")
+    del out, g_card, g_cpu
+
+
+def recsys_twins(bundle, params, opt, batch) -> tuple:
+    """Two train steps from one state on one batch in deterministic mode,
+    the first on a copy: bitwise equal (the copy and its step fit beside
+    the state).  Returns the state after the second."""
+    import torch
+
+    from repro_torch.training.tree import leaves, tree_map
+
+    with deterministic():
+        p, o = tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad),
+                        (params, opt))
+        p, o, m1 = bundle.step(p, o, batch)
+        params, opt, m2 = bundle.step(params, opt, batch)
+        same = all(torch.equal(a, b) for a, b in zip(leaves((p, o)), leaves((params, opt))))
+    require(same and torch.equal(m1["loss"], m2["loss"]),
+            "wide-deep: deterministic twin steps differ")
+    del p, o
+    torch.cuda.empty_cache()
+    log("  two steps from one state: bitwise equal in deterministic mode (parameters, "
+        "both moments, loss)")
+    return params, opt
+
+
+def recsys_restart_check(dev) -> None:
+    """``launch.train.train`` on wide-deep's SMOKE config on the card under
+    ``deterministic()``: fail at step 5, restart from step 3's checkpoint,
+    bitwise equal to a clean 8-step run (a full-size checkpoint is 21 GB)."""
+    from repro_torch.launch.train import state_tree, train
+    from repro_torch.training.tree import leaves
+
+    with tempfile.TemporaryDirectory() as ck, deterministic():
+        kw = dict(smoke=True, steps=8, ckpt_every=3, device=dev)
+        try:
+            train("wide-deep", "train_batch", ckpt_dir=ck, fail_at=5, **kw)
+        except RuntimeError as e:
+            require("injected failure at step 5" in str(e), str(e))
+        else:
+            require(False, "fail_at=5 did not fail")
+        resumed = train("wide-deep", "train_batch", ckpt_dir=ck, **kw)
+        clean = train("wide-deep", "train_batch", ckpt_dir=None, **kw)
+    require(resumed["steps"] == 4 and clean["steps"] == 8,
+            f"steps {resumed['steps']} / {clean['steps']}")
+    a = leaves(state_tree(*resumed["state"]))
+    b = leaves(state_tree(*clean["state"]))
+    d = max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+    require(d == 0.0, f"wide-deep restart differs from the clean run by {d}")
+    log("  restart: wide-deep (SMOKE) fails at step 5, restores step 3, 4 more steps: "
+        "bitwise equal to a clean 8-step run (deterministic mode)")
+
+
+def recsys_train(dev) -> None:
+    """``wide-deep @ train_batch`` uncut (batch 65,536, 1.32e9 fp32
+    parameters, AdamW) through ``arch.build_with_cfg``, fed by
+    ``PrefetchPipeline`` over the launcher's ``make_batch_fn``: the gradient
+    check at step 0, RECSYS_STEPS steps (no kernel launched), the loss of
+    batch 0 falling, twin steps, one profiled and one counted step, the
+    restart check."""
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.data.pipeline import PrefetchPipeline
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.recsys.widedeep import widedeep_loss
+
+    marks = [("start", time.perf_counter())]
+    counters = kernel_counts()
+    cfg = get_config("wide-deep")
+    shape = next(s for s in shapes_for("wide-deep") if s.name == "train_batch")
+    bundle = arch.build_with_cfg("wide-deep", cfg, shape, device=dev)
+    B = shape.dims["batch"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = bundle.init(gen)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    make = make_batch_fn(bundle, seed=0)
+    host0 = make(0)
+    log(f"wide-deep training (fp32, TF32 off, random seeded weights; card: {card()}): "
+        f"batch {B}, {cfg.n_sparse} fields x {cfg.vocab_per_field} ids x dim "
+        f"{cfg.embed_dim}, MLP {cfg.mlp}; state (parameters + AdamW moments) "
+        f"{state_gb:.2f} GB")
+    marks.append(("init", time.perf_counter()))
+    recsys_grad_check(bundle, params, host0, dev)
+    marks.append(("gradient check", time.perf_counter()))
+    first = {k: torch.from_numpy(v).to(dev) for k, v in host0.items()}
+
+    def loss0() -> float:
+        with torch.no_grad():
+            return float(widedeep_loss(params, first, cfg)[0])
+
+    before = loss0()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    pipe = PrefetchPipeline(make, start_step=0, device=dev)
+    losses, step_s = [], []
+    try:
+        for step, batch in pipe:
+            if step >= RECSYS_STEPS:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = bundle.step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        pipe.close()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    after = loss0()
+    require(sum(launches.values()) == 0, f"wide-deep training launched a kernel: {launches}")
+    require(all(math.isfinite(x) for x in losses + [before, after]),
+            f"wide-deep losses {losses}, batch 0 {before} -> {after}")
+    require(int(opt["count"]) == RECSYS_STEPS, f"count {int(opt['count'])}")
+    require(after < before, f"wide-deep: the loss of batch 0 did not fall: {before} -> "
+            f"{after} (steps {losses})")
+    ms = sum(step_s[1:]) / len(step_s[1:]) * 1e3
+    mfu = bundle.model_flops() / (ms * 1e-3 * hw()["peak_flops_fp32"])
+    log(f"  {RECSYS_STEPS} steps: losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; loss of batch 0 {before:.6f} -> {after:.6f}")
+    log(f"  train step: {ms:.3f} ms (steps 2-{RECSYS_STEPS}; step 1 "
+        f"{step_s[0] * 1e3:.1f} ms), {B / ms * 1e3:.5g} examples/s, peak "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.1f} GB, model FLOPs "
+        f"{bundle.model_flops():.4g} a step = {mfu:.2%} of the fp32 peak; launches "
+        f"{launches}; card: {card()}")
+
+    marks.append((f"{RECSYS_STEPS} steps", time.perf_counter()))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make(RECSYS_STEPS).items()}
+    params, opt = recsys_twins(bundle, params, opt, batch)
+    marks.append(("twins", time.perf_counter()))
+    name = f"wide-deep train step (batch {B})"
+    profile_train(name, lambda: bundle.step(params, opt, batch), RECSYS_PROFILE_GROUPS)
+    count_on_card(name, lambda: bundle.step(params, opt, batch), ms,
+                  model_flops=bundle.model_flops())
+    marks.append(("profile, count", time.perf_counter()))
+    del params, opt, batch, first
+    torch.cuda.empty_cache()
+    recsys_restart_check(dev)
+    marks.append(("restart", time.perf_counter()))
+    log("  wide-deep training's parts: " + ", ".join(
+        f"{label} {t - marks[i][1]:.1f} s" for i, (label, t) in enumerate(marks[1:])))
+
+
+def recsys_serve(dev, params) -> None:
+    """``serve_p99`` (batch 512: p50 / p99 over RECSYS_P99_BATCHES batches
+    already on the card), ``serve_bulk`` (batch 262,144: examples/s) and
+    ``retrieval_cand`` (1,000,000 candidates padded to 8,192's multiple:
+    ms a query) on ``params``, each held against a plain fp32 or float64
+    recomputation."""
+    import numpy as np
+    import torch
+
+    from repro_torch import arch
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.data import synthetic
+
+    cfg = get_config("wide-deep")
+    shapes = {s.name: s for s in shapes_for("wide-deep")}
+    V = cfg.vocab_per_field
+
+    def batch_of(B, step):
+        b = synthetic.recsys_batch(1, step, B, cfg.n_sparse, V, cfg.n_dense)
+        return {k: torch.from_numpy(b[k]).to(dev) for k in ("sparse_ids", "dense")}
+
+    p99 = arch.build_with_cfg("wide-deep", cfg, shapes["serve_p99"], device=dev)
+    batches = [batch_of(512, i) for i in range(RECSYS_P99_BATCHES)]
+    lat = []
+    with torch.inference_mode():
+        p99.step(params, batches[0])
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = p99.step(params, b)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    gap = close_to_plain(out, plain_widedeep(params, batches[-1], cfg), "serve_p99 logits")
+    lat = np.array(lat)
+    log(f"  serve_p99 (batch 512, {len(lat)} batches on the card): p50 "
+        f"{np.percentile(lat, 50):.4f} ms, p99 {np.percentile(lat, 99):.4f} ms, "
+        f"{512 / np.percentile(lat, 50) * 1e3:.5g} examples/s at p50; logits within "
+        f"{gap:.2e} of the plain fp32 forward on the CPU; card: {card()}")
+
+    bulk = arch.build_with_cfg("wide-deep", cfg, shapes["serve_bulk"], device=dev)
+    B = shapes["serve_bulk"].dims["batch"]
+    b = batch_of(B, 0)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = bulk.step(params, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RECSYS_BULK_REPS):
+            out = bulk.step(params, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / RECSYS_BULK_REPS
+    peak = torch.cuda.max_memory_allocated()
+    rows = {k: v[:RECSYS_ROWS_CHECKED] for k, v in b.items()}
+    gap = close_to_plain(out[:RECSYS_ROWS_CHECKED], plain_widedeep(params, rows, cfg),
+                         "serve_bulk logits")
+    log(f"  serve_bulk (batch {B}): {ms:.3f} ms a batch, {B / ms * 1e3:.5g} examples/s, "
+        f"peak {peak / 1e9:.2f} GB, model FLOPs {bulk.model_flops():.4g} = "
+        f"{bulk.model_flops() / (ms * 1e-3 * hw()['peak_flops_fp32']):.2%} of the fp32 "
+        f"peak; {RECSYS_ROWS_CHECKED} rows within {gap:.2e} of the plain fp32 forward on "
+        f"the CPU; card: {card()}")
+    with torch.inference_mode():
+        count_on_card(f"wide-deep serve_bulk (batch {B})", lambda: bulk.step(params, b),
+                      ms, model_flops=bulk.model_flops())
+    del b, out
+
+    ret = arch.build_with_cfg("wide-deep", cfg, shapes["retrieval_cand"], device=dev)
+    n_cand = shapes["retrieval_cand"].dims["n_candidates"]
+    nc = ret.input_specs()["batch"]["cand_ids"].shape[0]
+    q = batch_of(1, 0)
+    # every id once, the padding repeating id 0 (tied with it)
+    q["cand_ids"] = torch.cat([torch.arange(n_cand, dtype=torch.int32, device=dev),
+                               torch.zeros(nc - n_cand, dtype=torch.int32, device=dev)])
+    with torch.inference_mode():
+        vals, ids = ret.step(params, q)
+        q_ms = time_ms(lambda: ret.step(params, q), RECSYS_QUERY_REPS)
+        # float64: the query tower and the dot with every candidate row
+        fields = torch.arange(cfg.n_sparse, device=dev)[None, :]
+        x = torch.cat([params["embed"][fields, q["sparse_ids"].long()].double()
+                       .reshape(1, -1), q["dense"].double()], dim=1)
+        for layer in params["mlp"]:
+            x = torch.relu(x @ layer["w"].double() + layer["b"].double())
+        s64 = params["embed"][0][q["cand_ids"].long()].double() @ x[0, :cfg.embed_dim]
+        v64, i64 = torch.topk(s64, 100)
+    tol = RECSYS_TOL * float(v64.abs().max())
+    vgap = float((vals.double() - v64).abs().max())
+    require(vgap <= tol, f"retrieval: top-100 values {vgap} from float64 (limit {tol})")
+    v = v64.cpu().numpy()[None, :]
+    untied = untied_count(v, tol)
+    gaps = np.abs(np.diff(v[0])) > 2 * tol
+    keep = np.ones(100, bool)
+    keep[:-1] &= gaps
+    keep[1:] &= gaps
+    require(np.array_equal(ids.cpu().numpy()[keep], i64.cpu().numpy()[keep]),
+            "retrieval: the ids differ from float64's where the scores are untied")
+    require(float((s64[ids.long()] - v64).abs().max()) <= tol,
+            "retrieval: a tied place holds an id of another score")
+    del s64
+    log(f"  retrieval_cand ({n_cand} candidates padded to {nc}, top-100): {q_ms:.4f} ms a "
+        f"query (device time); values within {vgap:.3g} of a float64 recomputation "
+        f"(limit {tol:.3g}), ids equal at the {untied} untied places; card: {card()}")
+
+
+def recsys_pipeline(dev, params, launches: dict) -> None:
+    """The SimRank -> Wide & Deep pipeline of the port's example at
+    MovieLens-1M's published counts: the interaction stream through the
+    session's fused epochs with the example's settings (TTL 0.4 of the
+    horizon, tick 0.1 s, 2 queries a tick, bursts of 256; ML1M_TICKS leading
+    ticks), the mirrors held against a rebuild of the live window, a top-k
+    retrieval from the hottest item held against the same query with the
+    kernel off on the same graph, and the full-width re-rank of its
+    candidates against the plain fp32 forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import SimRankSession
+    from repro_torch.configs import get_config
+    from repro_torch.examples import simrank_recsys_retrieval as X
+    from repro_torch.models.recsys.widedeep import widedeep_forward
+
+    t0 = time.perf_counter()
+    users, items, ratings = ML1M
+    stream, n = X.interaction_stream(users, items, 2 * ratings, ML1M_HORIZON,
+                                     alpha=ML1M_ALPHA)
+    k_max = int(np.bincount(stream.dst, minlength=n).max())
+    ttl = X.TTL_SHARE * ML1M_HORIZON
+    built_s = time.perf_counter() - t0
+    sess = X.open_session(n, capacity=len(stream) + X.UPDATE_BURST, k_max=k_max,
+                          device=dev)
+    batches = changing_batches(sess.backend)
+    t0 = time.perf_counter()
+    rep = counted(lambda: X.stream_into(sess, stream, ttl=ttl, max_ticks=ML1M_TICKS),
+                  launches)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # every op applied, and both mirrors bitwise equal to a rebuild of the
+    # live window: the epochs' applies at the item hubs' extent
+    stream_checks("ML-1M stream", rep, sess.handle, batches, stream, ttl, X.TICK_S,
+                  False, dev)
+    rebuild_s = time.perf_counter() - t0
+    spec = X.retrieval_query(sess, users)
+    probe_before = launches["lane_probe"]
+    t0 = time.perf_counter()
+    env = counted(lambda: sess.query(spec), launches)
+    retrieve_ms = (time.perf_counter() - t0) * 1e3
+    require(launches["lane_probe"] > probe_before, "the retrieval launched no lane_probe")
+    # the same query (node, key, budget) with the kernel off on the same
+    # graph: lane_probe's levels at the hubs' extent against the COO push
+    off = SimRankSession(sess.handle, c=0.6, eps_a=0.1, delta=0.05, top_k=50, seed=0,
+                         use_kernel=False, own_graph=False)
+    off_env = off.query(spec)
+    require(env.variant == off_env.variant, f"variants {env.variant} / {off_env.variant}")
+    terr = topk_agree(env, off_env, FP32_RTOL)
+    del off
+    seed_item = spec.node - users
+    cands, scores = X.item_candidates(env, users)
+    require(len(cands) > 0, "ML-1M retrieval found no item candidates")
+    n_ticks = int(np.ceil(ML1M_HORIZON / X.TICK_S))
+    log(f"  retrieval pipeline at MovieLens-1M's counts ({users} users, {items} items, "
+        f"{ratings} ratings requested; card: {card()}): {len(stream) // 2} interactions "
+        f"kept ({len(stream)} directed edges, alpha {ML1M_ALPHA}, top in-degree "
+        f"{k_max} = k_max), built in {built_s:.2f} s; {rep.ticks} of {n_ticks} ticks "
+        f"streamed ({rep.arrivals} of {len(stream)} edge arrivals, "
+        f"{rep.arrivals / len(stream):.1%}) in {stream_s:.2f} s: {rep.arrivals // 2} "
+        f"interactions streamed, {rep.expired // 2} expired, {rep.update_steps} update "
+        f"steps, {rep.queries} queries at {rep.qps:.4g} queries/s, staleness p50 "
+        f"{rep.staleness_p50_s * 1e3:.1f} ms, p99 {rep.staleness_p99_s * 1e3:.1f} ms; "
+        f"live window {rep.final_live_edges} edges, both mirrors bitwise equal to a "
+        f"rebuild of it (version {sess.handle.version}; checked in {rebuild_s:.2f} s)")
+    for cp in rep.checkpoints:
+        log(f"    checkpoint t={cp.t:.1f} s: pooled precision@20 {cp.precision_at_k:.4f} "
+            f"over {cp.live_edges} live edges")
+    cfg = get_config("wide-deep")
+    batch = X.rerank_batch(cands, cfg, np.random.default_rng(0), dev)
+    with torch.inference_mode():
+        ctr = torch.sigmoid(widedeep_forward(params, batch, cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            widedeep_forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        rerank_ms = (time.perf_counter() - t0) * 1e2
+    gap = close_to_plain(ctr, torch.sigmoid(plain_widedeep(params, batch, cfg)),
+                         "re-rank CTRs")
+    order = torch.argsort(-ctr).cpu().numpy()
+    log(f"    seed item {seed_item}: {len(cands)} candidate items retrieved in "
+        f"{retrieve_ms:.1f} ms ({env.variant}; top5 {[int(i) for i in cands[:5]]}, SimRank "
+        f"{[round(float(s), 4) for s in scores[:5]]}; top-{spec.k} within {terr:.2e} of "
+        f"the kernel-off query, ids equal where untied); re-ranked by the full-width "
+        f"wide-deep in {rerank_ms:.3f} ms (top3 "
+        f"{[(int(cands[i]), round(float(ctr[i]), 4)) for i in order[:3]]}), CTRs within "
+        f"{gap:.2e} of the plain fp32 forward; lane_probe launches {launches['lane_probe']}")
+    del sess, env, off_env
+    torch.cuda.empty_cache()
+
+
+def recsys_phase(dev) -> dict:
+    """Wide & Deep's four shapes at the published width (train, the two
+    serve shapes, retrieval), then the SimRank -> Wide & Deep pipeline at
+    MovieLens-1M's counts.  Returns the kernels' launches of the pipeline's
+    windows (training and the bundles' steps launch none)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.recsys.widedeep import init_widedeep
+
+    t_phase = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the recsys path is fp32")
+    launches = dict.fromkeys(kernel_counts(), 0)
+    recsys_train(dev)
+    t_serve = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = init_widedeep(gen, get_config("wide-deep"))
+    log(f"wide-deep serving and retrieval (fp32, random seeded weights; card: {card()}):")
+    recsys_serve(dev, params)
+    t_pipe = time.perf_counter()
+    recsys_pipeline(dev, params, launches)
+    del params
+    torch.cuda.empty_cache()
+    t_end = time.perf_counter()
+    log(f"recsys phase: {t_end - t_phase:.1f} s (training {t_serve - t_phase:.1f}, "
+        f"serving and retrieval {t_pipe - t_serve:.1f}, the pipeline "
+        f"{t_end - t_pipe:.1f}); launches {launches}; card: {card()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The roofline: the dry-run on the host, the op counter on the card
 # ---------------------------------------------------------------------------
 
@@ -4389,8 +4879,8 @@ def gnn_phase(dev) -> dict:
 ROOFLINE_SHARE_LIMIT = 1.05
 COUNTED: list = []  # one dict per counted run on the card
 # the dry-run's records (``repro_torch.launch.dryrun``), one process each
-# (a GNN config's four shapes in one: a process's first meta count imports
-# torch's meta registrations), counted on meta on the host while the card
+# (a GNN config's or wide-deep's four shapes in one: a process's first meta
+# count imports torch's meta registrations), counted on meta on the host while the card
 # runs the other phases; the ring at 512 blocks (4 x its 256-block time) is
 # left to the CLI
 DRYRUN_CELLS = (
@@ -4402,7 +4892,8 @@ DRYRUN_CELLS = (
 ) + tuple((a, s, "both", ()) for a in ("llama3.2-1b", "yi-34b", "llama3-405b",
                                          "qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
           for s in ("train_4k", "prefill_32k", "decode_32k")) + tuple(
-    (a, GNN_SHAPES, "both", ()) for a in GNN_ARCHS)
+    (a, GNN_SHAPES, "both", ()) for a in GNN_ARCHS) + (
+    ("wide-deep", RECSYS_SHAPES, "both", ()),)
 DRYRUN_TIMEOUT_S = 900
 
 
@@ -4413,7 +4904,7 @@ def start_dryrun(out_dir: str) -> list:
                CUDA_VISIBLE_DEVICES="")
     procs = []
     for arch, shape, mesh, extra in DRYRUN_CELLS:
-        one = () if shape is GNN_SHAPES else ("--shape", shape)
+        one = () if isinstance(shape, tuple) else ("--shape", shape)
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, *one,
                "--mesh", mesh, "--out", out_dir, *extra]
         procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
@@ -4538,7 +5029,7 @@ def roofline_phase(procs, out_dir: str, rows: dict) -> None:
     for arch, shape, mesh, extra in DRYRUN_CELLS:
         tag = "__ring" if extra else ""
         want += [f"{arch}__{s}__{m}{tag}.json"
-                 for s in (shape if shape is GNN_SHAPES else (shape,))
+                 for s in (shape if isinstance(shape, tuple) else (shape,))
                  for m in (("single", "multi") if mesh == "both" else (mesh,))]
     have = sorted(os.listdir(out_dir))
     require(set(want) <= set(have) and not any("FAILED" in n for n in have),
@@ -4656,19 +5147,22 @@ def run(procs, out_dir: str) -> int:
     moe_launches = moe_phase(dev)
     train_launches = train_phase(dev)
     gnn_launches = gnn_phase(dev)
+    recsys_launches = recsys_phase(dev)
     roofline_phase(procs, out_dir, rows)
 
     # each kernel's launches in the windows of the paths that run it; probe_push
     # is on no path (the reference calls it only from its tests), and training
     # launches none (LM training runs the plain attention: the kernel has no
-    # backward; the GNN layers are scatter-adds, as the reference's)
+    # backward; the GNN layers are scatter-adds, as the reference's; Wide &
+    # Deep is gathers and GEMMs); the recsys pipeline's SimRank retrieval runs
+    # lane_probe
     for name, row in rows.items():
         row["launches"] = (launches[name] + acc_launches[name]
                            + svc_launches[name] + shard_launches[name]
                            + prod_launches[name] + dyn_launches[name]
                            + stream_launches[name] + lm_launches[name]
                            + moe_launches[name] + train_launches[name]
-                           + gnn_launches[name])
+                           + gnn_launches[name] + recsys_launches[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

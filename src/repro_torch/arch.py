@@ -17,14 +17,20 @@
   ``step(graph, batch)`` -> ``(topk_idx [Q, k], topk_val [Q, k])``);
 * ``model_flops()`` -> MODEL_FLOPS of one step.
 
-The LM family (dense GQA, and the MoE / MLA configs
-``deepseek-v2-lite-16b`` and ``qwen2-moe-a2.7b``; training, prefill and
-decode), the GNN family (training on the ``full_graph``, ``minibatch`` and
-``batched_graphs`` shapes: ``step(params, opt_state, batch)`` over
-``gnn_loss``, ``params`` the reference's tree of tensors) and the ProbeSim
-family (the paper's own config, ``probesim``) are ported.  The recsys
-family and the sharding specs wait (ROADMAP queue 1 item 14).  The port
-runs on the card unless asked otherwise:
+Every family of the reference is ported: the LM family (dense GQA, and
+the MoE / MLA configs ``deepseek-v2-lite-16b`` and ``qwen2-moe-a2.7b``;
+training, prefill and decode), the GNN family (training on the
+``full_graph``, ``minibatch`` and ``batched_graphs`` shapes:
+``step(params, opt_state, batch)`` over ``gnn_loss``, ``params`` the
+reference's tree of tensors), the recsys family (``wide-deep``: train over
+``widedeep_loss`` like a GNN; serve: ``step(params, batch)`` -> logits
+[B]; retrieval: ``step(params, batch)`` -> ``torch.topk(scores, 100)``,
+(values, indices) as ``jax.lax.top_k`` gives them) and the ProbeSim family
+(the paper's own config, ``probesim``).  The reference's sharding specs
+(``state_specs``, ``input_shardings``) are jax ``PartitionSpec``s and have
+no counterpart: the port runs one device's program, and the dry-run
+divides a step's counts evenly over the chips.  The port runs on the card
+unless asked otherwise:
 ``device`` defaults to "cuda" and ``use_kernel`` to True (the flash kernel
 on prefill; MLA's prefill needs ``use_kernel=False``: the kernel refuses
 its head widths).  The train bundle needs ``use_kernel=False`` and raises
@@ -44,6 +50,7 @@ import torch
 from repro_torch.configs.base import (
     GNNConfig,
     ProbeSimConfig,
+    RecsysConfig,
     ShapeSpec,
     TransformerConfig,
     family_of,
@@ -51,8 +58,6 @@ from repro_torch.configs.base import (
     shapes_for,
 )
 from repro_torch.graph.structs import resolve_device
-
-NOT_PORTED = "ROADMAP queue 1 item 14"
 
 # the shape kinds a bundle trains on (its step takes and updates an
 # optimizer state)
@@ -272,6 +277,93 @@ def _gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
 
 
 # ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+
+def _recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
+                   device: torch.device) -> ArchBundle:
+    from repro_torch.models.recsys.widedeep import (
+        init_widedeep,
+        retrieval_scores,
+        widedeep_forward,
+        widedeep_loss,
+    )
+    from repro_torch.training.step import make_train_step
+    from repro_torch.training.tree import tree_map
+
+    d = shape.dims
+    B = d.get("batch", 1)
+    i32, f32 = torch.int32, torch.float32
+    features = dict(sparse_ids=TensorSpec((B, cfg.n_sparse), i32),
+                    dense=TensorSpec((B, cfg.n_dense), f32))
+
+    def draw(gen):
+        if device.type == "meta":
+            return init_widedeep(None, cfg)
+        _check_gen(gen, device)
+        return init_widedeep(gen, cfg)
+
+    if shape.kind == "train":
+        opt = _make_optimizer(cfg)
+        step = make_train_step(lambda p, b: widedeep_loss(p, b, cfg), opt)
+
+        def init(gen=None):
+            p = tree_map(lambda t: t.requires_grad_(True), draw(gen))
+            return (p, opt.init(p))
+
+        def input_specs():
+            return dict(batch=dict(features, labels=TensorSpec((B,), i32)))
+
+    elif shape.kind == "serve":
+
+        def step(params, batch):
+            return widedeep_forward(params, batch, cfg)
+
+        def init(gen=None):
+            return (draw(gen),)
+
+        def input_specs():
+            return dict(batch=dict(features))
+
+    elif shape.kind == "retrieval":
+        nc = d["n_candidates"]
+        if nc > 8192:  # the reference's padding to 8,192
+            nc = _pad_to(nc, 8192)
+
+        def step(params, batch):
+            scores = retrieval_scores(params, batch, cfg)
+            return torch.topk(scores, 100)
+
+        def init(gen=None):
+            return (draw(gen),)
+
+        def input_specs():
+            return dict(batch=dict(features, cand_ids=TensorSpec((nc,), i32)))
+
+    else:
+        raise ValueError(f"recsys shape kind {shape.kind!r}")
+
+    def flops():
+        mlp_flops = 0
+        d_in = cfg.n_sparse * cfg.embed_dim + cfg.n_dense
+        for w in cfg.mlp:
+            mlp_flops += 2 * d_in * w
+            d_in = w
+        mult = 3.0 if shape.kind == "train" else 1.0
+        per_ex = mlp_flops + 2 * cfg.n_sparse * cfg.embed_dim
+        total = mult * B * per_ex
+        if shape.kind == "retrieval":
+            total += 2.0 * d["n_candidates"] * cfg.embed_dim
+        return total
+
+    return ArchBundle(
+        arch=arch, cfg=cfg, shape=shape, step=step, init=init,
+        input_specs=input_specs, model_flops=flops,
+    )
+
+
+# ---------------------------------------------------------------------------
 # ProbeSim family (the paper)
 # ---------------------------------------------------------------------------
 
@@ -384,13 +476,15 @@ def build_with_cfg(arch: str, cfg, shape: ShapeSpec, *, use_kernel: bool = True,
                           device=resolve_device(device))
     if cfg.family == "gnn":
         return _gnn_bundle(arch, cfg, shape, device=resolve_device(device))
+    if cfg.family == "recsys":
+        return _recsys_bundle(arch, cfg, shape, device=resolve_device(device))
     if cfg.family == "probesim":
         if mesh is None:
             from repro_torch.launch.mesh import ShardMesh
 
             mesh = ShardMesh([resolve_device(device)])
         return _probesim_bundle(arch, cfg, shape, mesh=mesh)
-    raise NotImplementedError(f"family {cfg.family!r} is not ported ({NOT_PORTED})")
+    raise ValueError(cfg.family)
 
 
 def _shrink_shape(cfg, shape: ShapeSpec) -> ShapeSpec:
@@ -404,10 +498,12 @@ def _shrink_shape(cfg, shape: ShapeSpec) -> ShapeSpec:
             d.update(n_nodes=256, n_edges=2048, batch_nodes=8, fanout=(3, 2), d_feat=24)
         else:
             d.update(batch=4, n_nodes=10, n_edges=20, d_feat=8)
+    elif cfg.family == "recsys":
+        d.update(batch=min(d.get("batch", 1), 32))
+        if "n_candidates" in d:
+            d["n_candidates"] = 512
     elif cfg.family == "probesim":
         d.update(queries=2, walk_chunk=16)
-    else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported ({NOT_PORTED})")
     return ShapeSpec(shape.name, shape.kind, d)
 
 

@@ -1,14 +1,10 @@
-"""Config dataclasses and registry of the LM, GNN and ProbeSim families
-(copy of ``repro.configs.base``).
+"""Config dataclasses and registry of the LM, GNN, recsys and ProbeSim
+families (copy of ``repro.configs.base``).
 
-Each ported architecture registers one module in this package exposing
+Each architecture registers one module in this package exposing
 ``CONFIG`` (full scale, the published numbers) and ``SMOKE`` (reduced,
 CPU-runnable).  The dataclasses are the reference's, field for field, so a
-config compares equal across the two packages.  The LM configs (dense, MoE
-and MLA; trained and served), the five GNN configs and ProbeSim are
-ported; the recsys config waits for its slice (ROADMAP queue 1 item 14),
-but ``ARCH_IDS``, every family's shapes and ``family_of`` cover it, so a
-dry-run can name each cell it skips.
+config compares equal across the two packages.
 """
 from __future__ import annotations
 
@@ -131,6 +127,20 @@ class GNNConfig:
 
 
 @dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    n_sparse: int
+    embed_dim: int
+    mlp: tuple[int, ...]
+    vocab_per_field: int = 1_000_000
+    n_dense: int = 13
+    interaction: str = "concat"
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    family: str = "recsys"
+
+
+@dataclass(frozen=True)
 class ProbeSimConfig:
     """The paper's own serving config (``configs/probesim.py``)."""
 
@@ -227,34 +237,22 @@ _MODULE_OF = {
     "gcn-cora": "gcn_cora",
     "gatedgcn": "gatedgcn",
     "nequip": "nequip",
+    "wide-deep": "wide_deep",
     "probesim": "probesim",
     "gat-bonus": "gat_bonus",  # beyond the assigned ten
 }
-
-NOT_PORTED = ("wide-deep",)
-
-# the family of each config not ported yet (the reference's ``cfg.family``)
-_FAMILY_OF_UNPORTED = {"wide-deep": "recsys"}
 
 _SHAPES_OF = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES,
               "probesim": PROBESIM_SHAPES}
 
 
 def get_config(arch: str, smoke: bool = False):
-    if arch not in _MODULE_OF:
-        if arch in NOT_PORTED:
-            raise NotImplementedError(
-                f"config {arch!r} is not ported yet (ROADMAP queue 1 item 14)"
-            )
-        raise KeyError(arch)
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch]}")
     return mod.SMOKE if smoke else mod.CONFIG
 
 
 def family_of(arch: str) -> str:
-    """The arch's family, ported or not."""
-    if arch in _FAMILY_OF_UNPORTED:
-        return _FAMILY_OF_UNPORTED[arch]
+    """The arch's family (its config's ``family``)."""
     return get_config(arch).family
 
 

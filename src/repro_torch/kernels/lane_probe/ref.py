@@ -45,19 +45,23 @@ def lane_probe_level_ref(
     # deposit: fp32 accumulate, storage-dtype store
     tot = total.float() + torch.where(fin[None, :], dep.float(), zero)
 
+    # the finished lanes zeroed once on the table, and a zero row ``t`` that
+    # every dead slot (sentinel id or past the row's extent) reads: the
+    # same terms as zeroing the gathered block, in fewer passes over it
+    src = torch.zeros((t + 1, w), dtype=torch.float32, device=table.device)
+    src[:t] = torch.where(fin[None, :], zero, table)
     out = torch.zeros((r, w), dtype=torch.float32, device=table.device)
     for a, b, kk in row_chunks(row_len, k, w * 4, GATHER_BUDGET_BYTES):
         idx = nbrs[a:b, :kk]
         addr = (idx.long() - int(row0) + int(tab0)).clamp(0, t - 1)
-        rows = table[addr].float()  # [rows, K', W]
         cut = torch.arange(kk, device=table.device)[None, :] >= row_len[a:b, None]
-        idx = idx[:, :, None]
-        eff = torch.where(fin[None, None, :], zero, rows) + (
-            idx == u_p[None, None, :]
-        ).float()
+        dead = (idx >= n_live) | cut
+        addr = torch.where(dead, t, addr)
+        inject = idx[:, :, None] == u_p[None, None, :]
+        inject &= ~dead[:, :, None]  # a dead slot injects nothing
+        eff = src[addr] + inject  # [rows, K', W]
         if prune:
             eff = torch.where(eff > thr[None, None, :], eff, zero)
-        eff = torch.where((idx >= n_live) | cut[:, :, None], zero, eff)
         out[a:b] = eff.sum(dim=1) * weights[a:b, None]
 
     gids = int(row0) + torch.arange(r, dtype=torch.int32, device=table.device)

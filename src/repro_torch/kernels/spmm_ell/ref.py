@@ -17,19 +17,33 @@ from repro_torch.graph.structs import GATHER_BUDGET_BYTES
 Tensor = torch.Tensor
 
 
+# padding a chunk may gather past twice its live slots, in bytes, by the
+# device of ``row_len``: a hub row starts a chunk of its own instead of
+# widening its neighbours' rows to its extent (a zero slot adds nothing to
+# a row's sum; torch may group the additions by the extent, so a cut may
+# move the last bits).  A chunk costs the card about ten launches, worth
+# some MB of traffic; on the CPU it costs a few Python calls
+CHUNK_WASTE_BYTES = {"cuda": 8 << 20, "cpu": 0}
+
+
 def row_chunks(row_len: Tensor, k: int, slot_bytes: int, budget: int):
     """``(a, b, kk)``: consecutive row chunks ``[a, b)`` whose gathered
     ``[b - a, kk, ...]`` block (``slot_bytes`` per slot) stays under
-    ``budget`` bytes, ``kk`` the chunk's longest extent ``min(row_len, k)``.
-    One host read of ``row_len``; the plain versions of both ELL kernels
-    gather over these chunks."""
+    ``budget`` bytes and gathers at most twice its rows' extents plus
+    the device's CHUNK_WASTE_BYTES, ``kk`` the chunk's longest extent
+    ``min(row_len, k)``.  One host read of ``row_len``; the plain versions
+    of both ELL kernels gather over these chunks."""
+    waste = CHUNK_WASTE_BYTES["cuda" if row_len.is_cuda else "cpu"]
     lens = [max(x, 1) for x in row_len.clamp(0, k).tolist()]
     a, r = 0, len(lens)
     while a < r:
-        b, kk = a + 1, lens[a]
-        while (b < r and (b + 1 - a) * max(kk, lens[b]) * slot_bytes
-               <= budget):
-            kk, b = max(kk, lens[b]), b + 1
+        b, kk, live = a + 1, lens[a], lens[a]
+        while b < r:
+            slots = (b + 1 - a) * max(kk, lens[b])
+            if (slots * slot_bytes > budget
+                    or (slots - 2 * (live + lens[b])) * slot_bytes > waste):
+                break
+            kk, live, b = max(kk, lens[b]), live + lens[b], b + 1
         yield a, b, min(kk, k)
         a = b
 

@@ -7,9 +7,11 @@ the ProbeSim family over ``launch.mesh.make_production_mesh``: 256 blocks,
 or 512 with ``--mesh multi``), its state is made from shapes
 (``abstract_state``), and its step runs once under a
 ``roofline.analysis.OpCounter``.  Nothing is allocated: the counter sees
-every op of the full-depth, full-width step.  The port's LM step is one
-program with no sharding specs (ROADMAP queue 1 item 14): its record
-divides the step's counts evenly over the mesh's chips.
+every op of the full-depth, full-width step.  The port's LM, GNN and
+recsys steps are one program with no sharding specs (the reference's are
+jax ``PartitionSpec``s: Wide & Deep's shard the tables' rows and induce an
+all-to-all): their records divide the step's counts evenly over the
+mesh's chips and count no collective.
 
 Unlike the reference there is no depth-delta extrapolation (XLA's
 ``cost_analysis`` counts a ``scan`` body once; the counter sees every
@@ -23,14 +25,13 @@ with autograd on: the forward, the backward with each block recomputed
 (``cfg.remat``), and the AdamW update.
 
 A GNN cell is a train step (``full_graph``, ``minibatch`` and
-``batched_graphs`` shapes), counted with autograd on like ``train_4k``;
-its record, like an LM's, divides the step's counts evenly over the
-mesh's chips (no GNN sharding specs).  A cell the port does not have yet
-(``wide-deep``) writes ``{arch}__{shape}__skip.json`` with the
-``NotImplementedError``'s words (they name ROADMAP queue 1 item 14), as
-does an inapplicable cell (``arch.is_applicable``) unless
-``--include-skipped``.  A cell that fails writes
-``{arch}__{shape}__{mesh}.FAILED.json`` and the run exits non-zero.
+``batched_graphs`` shapes), counted with autograd on like ``train_4k``, and
+so is ``wide-deep``'s ``train_batch``; its ``serve_p99``, ``serve_bulk``
+and ``retrieval_cand`` steps are counted in inference mode.  An
+inapplicable cell (``arch.is_applicable``) writes
+``{arch}__{shape}__skip.json`` unless ``--include-skipped``.  A cell that
+fails writes ``{arch}__{shape}__{mesh}.FAILED.json`` and the run exits
+non-zero.
 
 Usage (``--arch`` without ``--shape``: every shape of the arch, in one
 process):
@@ -185,8 +186,7 @@ def run_cell(arch_id: str, shape_name: str, mesh_name: str, *,
     "single": 256 blocks, "multi": 512); ``mesh`` places the ProbeSim
     blocks elsewhere (a real ``ShardMesh``: a graph up to
     ``arch.REAL_GRAPH_MAX_N`` nodes is then built on it), and ``chips`` is
-    the mesh's (``ShardMesh.chips``).  Raises ``NotImplementedError`` for
-    a cell the port does not have."""
+    the mesh's (``ShardMesh.chips``)."""
     if mesh is None:
         mesh = make_production_mesh(multi_pod=mesh_name == "multi")
     applicable, why = arch_mod.is_applicable(arch_id, shape_name)
@@ -280,9 +280,6 @@ def main(argv=None) -> None:
             t0 = time.time()
             try:
                 rec = run_cell(a, s, m, overrides=overrides or None)
-            except NotImplementedError as e:  # not ported yet: on no mesh
-                skip(a, s, str(e))
-                break
             except Exception as e:
                 failures += 1
                 print(f"FAIL {tag}: {e}")

@@ -3,12 +3,12 @@ device with the full fault-tolerance loop: checkpoint / restart, async
 saves, deterministic data, failure injection for testing.
 
 The LM family trains (``arch.build(..., use_kernel=False)``: the flash
-kernel has no backward) and so does the GNN family; the recsys family
-waits for its slice (ROADMAP queue 1 item 14).  Runs on the card unless
-``device`` says otherwise.  Checkpoints hold ``state_tree(model,
-opt_state)``: the reference's ``(params, opt_state)`` pytree (the LM's
-stage leaves stacked; a GNN's tree is the reference's already), so the
-two packages restore each other's checkpoints.
+kernel has no backward), and so do the GNN and recsys families.  Runs on
+the card unless ``device`` says otherwise.  Checkpoints hold
+``state_tree(model, opt_state)``: the reference's ``(params, opt_state)``
+pytree (the LM's stage leaves stacked; a GNN's or Wide & Deep's tree is
+the reference's already), so the two packages restore each other's
+checkpoints.
 
 Usage:
   python -m repro_torch.launch.train --arch llama3.2-1b --smoke --steps 50 \\
@@ -79,8 +79,11 @@ def make_batch_fn(bundle, seed: int):
     cfg = bundle.cfg
     shape = bundle.shape
     if cfg.family == "recsys":
-        raise NotImplementedError(
-            f"training family {cfg.family!r} is not ported ({arch_mod.NOT_PORTED})")
+        def fn(step):
+            return synthetic.recsys_batch(seed, step, shape.dims["batch"], cfg.n_sparse,
+                                          cfg.vocab_per_field, cfg.n_dense)
+
+        return fn
     if cfg.family == "gnn":
         return _gnn_batch_fn(bundle, seed)
     if cfg.family != "lm":
@@ -100,8 +103,8 @@ def _host(x: torch.Tensor) -> torch.Tensor:
 
 def state_tree(model, opt_state) -> tuple:
     """``(params, opt_state)`` in the reference's layout as host copies:
-    ``params`` its ``init_lm`` tree (stage leaves stacked; a GNN's tree as
-    it is), ``opt_state`` ``dict(count=, mu=, nu=)`` with the moments laid
+    ``params`` its ``init_lm`` tree (stage leaves stacked; a GNN's or Wide
+    & Deep's tree as it is), ``opt_state`` ``dict(count=, mu=, nu=)`` with the moments laid
     out alike."""
     if isinstance(model, torch.nn.Module):
         params = dict(model.named_parameters())

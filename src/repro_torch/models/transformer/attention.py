@@ -18,7 +18,7 @@ The flash-attention kernel is switchable via ``use_kernel`` (prefill
 shapes); the plain PyTorch path is the oracle.  The kernel takes v of q's
 head width only, so MLA's prefill (q / k of width ``dn + dr``, v of ``dv``)
 runs the plain path and ``sdpa`` refuses the kernel there, as the
-reference's wrapper does (ROADMAP queue 1 item 14).
+reference's wrapper does.
 """
 from __future__ import annotations
 

@@ -34,9 +34,6 @@ from repro_torch.models.transformer import moe as moe_mod
 
 Tensor = torch.Tensor
 
-NOT_PORTED = "ROADMAP queue 1 item 14"
-
-
 def stages_of(cfg) -> list[tuple[int, str]]:
     if cfg.moe is None:
         return [(cfg.n_layers, "dense")]
@@ -46,11 +43,6 @@ def stages_of(cfg) -> list[tuple[int, str]]:
         out.append((fd, "dense"))
     out.append((cfg.n_layers - fd, "moe"))
     return out
-
-
-def _check_supported(cfg) -> None:
-    if cfg.attention not in ("gqa", "mla"):
-        raise NotImplementedError(f"{cfg.attention} attention is not ported ({NOT_PORTED})")
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +115,6 @@ def init_lm(gen: torch.Generator | None, cfg) -> LM:
     router in fp32), norms 1.  With
     ``gen=None`` the same tree as ``meta`` tensors (shapes and dtypes only:
     a dry-run's state)."""
-    _check_supported(cfg)
     dtype = cm.dtype_of(cfg.param_dtype)
     if gen is None:
         dev = torch.device("meta")
@@ -158,7 +149,6 @@ def lm_from_params(params: dict, cfg, device="cuda") -> LM:
     Every leaf is copied as it is: the layouts are the same."""
     from repro_torch.graph.structs import resolve_device
 
-    _check_supported(cfg)
     dev = resolve_device(device)
     top = {k: _tensor(params[k], dev) for k in ("embed", "final_norm", "lm_head")
            if k in params}
@@ -300,7 +290,6 @@ def lm_forward(
     The aux loss is the MoE routers' summed over the layers; dense stages
     add 0.  With ``cfg.remat`` and grad enabled each block is checkpointed
     (non-reentrant; no RNG state: a block draws nothing)."""
-    _check_supported(cfg)
     cdt = cm.dtype_of(cfg.compute_dtype)
     B, S = tokens.shape
     x = model.embed[tokens.long()].to(cdt)
@@ -355,7 +344,6 @@ def init_cache(cfg, batch: int, s_max: int, device="cuda") -> list:
     in the compute dtype (the reference's stacked layout)."""
     from repro_torch.graph.structs import resolve_device
 
-    _check_supported(cfg)
     dev = resolve_device(device)
     cdt = cm.dtype_of(cfg.compute_dtype)
     if cfg.attention == "mla":
@@ -378,7 +366,6 @@ def lm_decode_step(
 ) -> tuple[list, Tensor]:
     """One decode step; returns (caches, logits [B, V] fp32).  The caches
     are updated in place at ``position`` and returned."""
-    _check_supported(cfg)
     cdt = cm.dtype_of(cfg.compute_dtype)
     x = model.embed[tokens.long()][:, None, :].to(cdt)  # [B, 1, D]
     decode = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode

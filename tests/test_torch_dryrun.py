@@ -63,7 +63,7 @@ def test_dense_lm_configs_pinned_to_repro(pair, which):
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert (t.params_dense, t.params_active) == (j.params_dense, j.params_active)
     arch = pair[0].CONFIG.name
-    assert arch not in TCB.NOT_PORTED
+    assert arch in TCB._MODULE_OF  # registered: every config is ported
     assert TCB.get_config(arch, smoke=which == "SMOKE") == t
     assert t.d_head <= 128  # the flash kernel's MAX_HEAD_DIM
     assert TCB.scale_down(t, n_layers=3) == dataclasses.replace(t, n_layers=3)
@@ -293,7 +293,7 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
         "llama3.2-1b__prefill_32k__single.json",
         "llama3.2-1b__prefill_32k__single__bad.FAILED.json",
         "llama3.2-1b__train_4k__single.json",
-        "wide-deep__train_batch__skip.json"]
+        "wide-deep__train_batch__single.json"]
     train = json.loads((tmp_path / "llama3.2-1b__train_4k__single.json").read_text())
     assert train["chips"] == 256 and train["model_flops"] == pytest.approx(
         6.0 * TCB.get_config("llama3.2-1b").params_active * 256 * 4096, rel=1e-12)
@@ -301,8 +301,9 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
     assert 0.5 < train["useful_flops_ratio"] < 0.8
     skips = {n: json.loads((tmp_path / n).read_text())["skip_reason"]
              for n in names if n.endswith("__skip.json")}
-    for n, why in skips.items():
-        assert ("queue 1 item 14" in why) != n.startswith("llama3-405b__long_500k")
+    # every config is ported: the one skip is the inapplicable cell's
+    assert skips == {"llama3-405b__long_500k__skip.json":
+                     TA.is_applicable("llama3-405b", "long_500k")[1]}
     single = json.loads((tmp_path / "llama3.2-1b__prefill_32k__single.json").read_text())
     multi = json.loads((tmp_path / "llama3.2-1b__prefill_32k__multi.json").read_text())
     assert (single["chips"], multi["chips"]) == (256, 512)
@@ -317,5 +318,6 @@ def test_dry_run_cli_records_skips_failures_and_report(tmp_path, capsys):
         sys.argv = argv
     text = capsys.readouterr().out
     assert "| llama3.2-1b | prefill_32k | single |" in text
-    assert "| wide-deep | train_batch | config 'wide-deep' is not ported yet" in text
+    assert "| wide-deep | train_batch | single |" in text
+    assert "not ported" not in text
     assert "| gin-tu | molecule | single |" in text

@@ -53,7 +53,7 @@ def test_gnn_configs_pinned_to_repro(arch, smoke):
     j, t = JCB.get_config(arch, smoke=smoke), TCB.get_config(arch, smoke=smoke)
     assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert TCB.family_of(arch) == "gnn" and arch not in TCB.NOT_PORTED
+    assert TCB.family_of(arch) == "gnn" and arch in TCB._MODULE_OF
     assert [(s.name, s.kind, s.dims) for s in TCB.shapes_for(arch)] == \
         [(s.name, s.kind, s.dims) for s in JCB.shapes_for(arch)]
     # the tree's layout: keys, order, shapes and dtypes of repro's init_gnn
@@ -69,10 +69,22 @@ def test_gnn_configs_pinned_to_repro(arch, smoke):
 
 
 def test_wide_deep_still_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        TCB.get_config("wide-deep")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        TA.build("wide-deep", "train_batch", smoke=True, device=CPU)
+    """wide-deep, the last config the port took, is ported: its config is
+    the reference's and its train bundle trains like a GNN's (a parameter
+    tree under ``make_train_step``); an unknown arch still raises."""
+    assert dataclasses.asdict(TCB.get_config("wide-deep")) == dataclasses.asdict(
+        JCB.get_config("wide-deep"))
+    tb = TA.build("wide-deep", "train_batch", smoke=True, device=CPU)
+    params, opt = tb.init(torch.Generator().manual_seed(0))
+    assert set(params) == {"bias", "embed", "head", "mlp", "wide", "wide_dense"}
+    batch = {k: torch.from_numpy(v) for k, v in TLT.make_batch_fn(tb, 0)(0).items()}
+    params, opt, m = tb.step(params, opt, batch)
+    assert int(opt["count"]) == 1 and bool(torch.isfinite(m["loss"]))
+    with pytest.raises(KeyError):
+        TCB.get_config("wide-deep-xl")
+    with pytest.raises(ValueError, match="recsys shape kind"):
+        TA.build_with_cfg("wide-deep", TCB.get_config("wide-deep", smoke=True),
+                          TCB.ShapeSpec("x", "decode", {}), device=CPU)
 
 
 @pytest.mark.parametrize("arch", GNN_ARCHS)

@@ -60,7 +60,10 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.training.compression", "repro_torch.training.tree",
                 "repro_torch.data.synthetic", "repro_torch.data.pipeline",
                 "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
-                "repro_torch.examples.train_lm_smoke"):
+                "repro_torch.examples.train_lm_smoke",
+                "repro_torch.configs.wide_deep", "repro_torch.models.recsys",
+                "repro_torch.models.recsys.widedeep",
+                "repro_torch.examples.simrank_recsys_retrieval"):
         assert new in mods, new
     script = (
         "import sys\n"
@@ -112,7 +115,10 @@ def test_entry_points_default_to_cuda():
     from repro_torch.streams import SlidingWindowExpirer, frozen_window_handle
 
     from repro_torch import arch
+    from repro_torch.examples.simrank_recsys_retrieval import serve_stream
     from repro_torch.launch.train import train
+    from repro_torch.models.recsys.widedeep import widedeep_from_params
+    from repro_torch.streams import EventStream
 
     src, dst, n = toy_graph()
     expirer = SlidingWindowExpirer(ttl=0.5)
@@ -130,6 +136,11 @@ def test_entry_points_default_to_cuda():
         lambda: arch.build("llama3.2-1b", "train_4k", smoke=True, use_kernel=False),
         lambda: train("llama3.2-1b", "train_4k", smoke=True, steps=1, ckpt_dir=None,
                       ckpt_every=1),
+        # recsys: its bundles, its parameter carrier and the retrieval example
+        lambda: arch.build("wide-deep", "serve_p99", smoke=True),
+        lambda: widedeep_from_params({"bias": np.zeros((), np.float32)}),
+        lambda: serve_stream(EventStream([0.0], [0], [1], n), ttl=1.0, capacity=8,
+                             k_max=4, device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

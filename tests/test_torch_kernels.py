@@ -166,6 +166,52 @@ def test_lane_probe_plain_chunks(monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("kernel", ["lane_probe", "spmm_ell"])
+def test_plain_chunks_cut_at_hubs_keep_the_sums(monkeypatch, kernel, device):
+    """``row_chunks`` starts a new chunk where a hub row would widen its
+    neighbours' rows past twice their live slots plus CHUNK_WASTE_BYTES
+    (the card's 8 MB, or the CPU's 0: a cut at every such row).  On a table
+    of short rows and hubs of 1,024 slots, 64 lanes, the chunks differ from
+    the budget-only chunking (no waste limit) and both plain ELL versions
+    agree within the kernel checks' fp32 tolerance: a zero slot adds
+    nothing, but torch may group a row's additions by its chunk's extent,
+    so the bits may differ."""
+    from repro_torch.kernels.spmm_ell import ref as spmm_ref
+
+    rng = np.random.default_rng(11)
+    n, k, w = 400, 1024, 64
+    deg = rng.integers(0, 6, n).astype(np.int32)
+    deg[[37, 150, 151, 320]] = [k, k, 700, k]
+    nbrs = np.full((n, k), n, np.int32)
+    for v in np.flatnonzero(deg):
+        nbrs[v, : deg[v]] = rng.integers(0, n, deg[v])
+    lv = {f: torch.from_numpy(np.array(v))
+          for f, v in _level(rng, n=n, k=k, w=w).items()}
+    lv["nbrs"] = torch.from_numpy(nbrs)
+    row_len = torch.from_numpy(deg)
+    scores = torch.rand(n + 1, w, generator=torch.Generator().manual_seed(11))
+    scores[n] = 0
+
+    def run():
+        chunks = list(spmm_ref.row_chunks(row_len, k, w * 4, spmm_ref.GATHER_BUDGET_BYTES))
+        if kernel == "lane_probe":
+            out = lane_probe_level_ref(**lv, row_len=row_len, row0=0, tab0=0, n_live=n,
+                                       prune=True)
+        else:
+            out = (spmm_ell_padded_ref(lv["nbrs"], scores, lv["weights"], row_len=row_len),)
+        return chunks, out
+
+    waste = spmm_ref.CHUNK_WASTE_BYTES
+    monkeypatch.setitem(waste, "cpu", waste[device])
+    cut_chunks, cut = run()
+    monkeypatch.setitem(waste, "cpu", float("inf"))
+    whole_chunks, whole = run()
+    assert len(whole_chunks) == 1 and len(cut_chunks) > 2
+    for a, b in zip(cut, whole, strict=True):
+        close_to_plain(a, b, torch.float32)
+
+
 def test_cpu_wrappers_run_plain_versions():
     """On CPU tensors the wrappers are the plain versions and count no launch."""
     lv = {f: torch.from_numpy(np.array(v))

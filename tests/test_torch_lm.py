@@ -61,16 +61,24 @@ def test_llama_configs_pinned_to_repro(which):
 
 
 def test_unported_configs_and_kinds_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        t_base.get_config("wide-deep")
+    # every config of the reference is ported (wide-deep last); an arch the
+    # reference does not have raises, as there
+    assert t_base.get_config("wide-deep").family == "recsys"
+    assert all(a in t_base._MODULE_OF for a in t_base.ARCH_IDS)
+    with pytest.raises(KeyError):
+        t_base.get_config("llama3.2-2b")
     # the train kind is ported; it refuses the flash kernel (no backward)
     with pytest.raises(ValueError, match="no backward"):
         t_arch.build("llama3.2-1b", "train_4k", smoke=True, device=CPU)
     with pytest.raises(ValueError, match="no backward"):
         t_arch.build("qwen2-moe-a2.7b", "train_4k", smoke=True, device=CPU)
-    other = dataclasses.replace(port_lm_cfg(TINY_GQA), attention="linear")
-    with pytest.raises(NotImplementedError, match="linear attention"):
-        TM.init_cache(other, 1, 4, CPU)
+    # any attention kind but MLA runs as GQA, as in the reference (no kind is
+    # left unported to refuse)
+    other = dataclasses.replace(TINY_GQA, attention="linear")
+    got = TM.init_cache(port_lm_cfg(other), 1, 4, CPU)
+    want = JM.init_cache(other, 1, 4)
+    assert [{k: tuple(v.shape) for k, v in c.items()} for c in got] == \
+        [{k: v.shape for k, v in c.items()} for c in want]
 
 
 def stacked(model, tcfg) -> dict:

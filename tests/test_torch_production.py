@@ -119,7 +119,7 @@ def test_probesim_config_and_shapes_equal_repro():
     ref = [(s.name, s.kind, s.dims) for s in JCB.PROBESIM_SHAPES]
     for shapes in (TCB.PROBESIM_SHAPES, TCB.shapes_for("probesim")):
         assert [(s.name, s.kind, s.dims) for s in shapes] == ref
-    assert "probesim" not in TCB.NOT_PORTED
+    assert "probesim" in TCB._MODULE_OF  # registered: every config is ported
     for arch, shape in (("probesim", "serve_batch"), ("probesim", "serve_online"),
                         ("llama3.2-1b", "long_500k"),
                         ("llama3.2-1b", "prefill_32k")):

@@ -199,15 +199,21 @@ def test_make_batch_fn_and_refusals():
     fn = TL.make_batch_fn(tb, seed=3)
     _equal(fn(7), j_syn.lm_batch(3, 7, 2, 64, tb.cfg.vocab))
 
+    # the recsys family trains too: the reference's recsys_batch
+    rb = TA.build("wide-deep", "train_batch", smoke=True, device=CPU)
+    c = rb.cfg
+    _equal(TL.make_batch_fn(rb, seed=3)(7),
+           j_syn.recsys_batch(3, 7, 32, c.n_sparse, c.vocab_per_field, c.n_dense))
+    out = TL.train("wide-deep", "train_batch", smoke=True, steps=1, ckpt_dir=None,
+                   ckpt_every=1, device=CPU)
+    assert out["steps"] == 1 and np.isfinite(out["first_loss"])
+
     class Fake:
-        cfg = type("C", (), {"family": "recsys"})()
+        cfg = type("C", (), {"family": "probesim"})()
         shape = None
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+    with pytest.raises(ValueError, match="no training loop for family probesim"):
         TL.make_batch_fn(Fake, seed=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        TL.train("wide-deep", "train_batch", smoke=True, steps=1, ckpt_dir=None,
-                 ckpt_every=1, device=CPU)
     with pytest.raises(ValueError, match="not a training shape"):
         TL.train("llama3.2-1b", "prefill_32k", smoke=True, steps=1, ckpt_dir=None,
                  ckpt_every=1, device=CPU)

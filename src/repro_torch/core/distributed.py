@@ -58,6 +58,7 @@ from repro_torch.core.multisource import (
 )
 from repro_torch.graph.partition import pad_to_multiple, partition_edges_by_dst
 from repro_torch.graph.structs import GATHER_BUDGET_BYTES
+from repro_torch.spans import span
 
 Tensor = torch.Tensor
 
@@ -635,8 +636,9 @@ def probe_walks_sharded(
             if eps_p > 0.0:
                 sc.masked_fill_(sc <= eps_p / (sqrt_c ** (p - 1)), 0.0)
         fulls = mesh.all_gather_rows(scores) if st.shards > 1 else scores
-        scores = coo_push(fulls, st.src_sh, st.dst_sh, live, w, rows=rows,
-                          n_pad=st.n_pad, edge_chunks=edge_chunks)
+        with span("serve_step.push"):
+            scores = coo_push(fulls, st.src_sh, st.dst_sh, live, w, rows=rows,
+                              n_pad=st.n_pad, edge_chunks=edge_chunks)
         for s, sc in enumerate(scores):
             exclude(sc, cols[s][:, p - 2], s, rows, ar[s])
     return mesh.gather_rows(scores)

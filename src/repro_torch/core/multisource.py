@@ -46,6 +46,7 @@ from repro_torch.core.walks import (
     walks_from_uniforms,
 )
 from repro_torch.graph.structs import EllGraph, Graph
+from repro_torch.spans import span
 
 Tensor = torch.Tensor
 
@@ -160,15 +161,16 @@ def fused_serve(
     )
 
     # --- walk pool: all Q x n_r walks at once -----------------------------
-    cont, pick = query_uniforms(q, seeds=seeds, uniforms=uniforms, n_r=n_r,
-                                max_len=max_len, sqrt_c=sqrt_c, device=dev)
-    pool = walks_from_uniforms(
-        eg,
-        us.repeat_interleave(n_r),
-        cont.reshape(q * n_r, max_len - 1),
-        pick.reshape(q * n_r, max_len - 1),
-    )  # [Q * n_r, max_len]
-    pool_len = (pool < n).sum(dim=1).to(torch.int32)
+    with span("fused_serve.draw"):
+        cont, pick = query_uniforms(q, seeds=seeds, uniforms=uniforms, n_r=n_r,
+                                    max_len=max_len, sqrt_c=sqrt_c, device=dev)
+        pool = walks_from_uniforms(
+            eg,
+            us.repeat_interleave(n_r),
+            cont.reshape(q * n_r, max_len - 1),
+            pick.reshape(q * n_r, max_len - 1),
+        )  # [Q * n_r, max_len]
+        pool_len = (pool < n).sum(dim=1).to(torch.int32)
 
     # --- one probe level: deposit + inject + prune + push + exclude -------
     if use_kernel:
@@ -217,24 +219,28 @@ def fused_serve(
     total = torch.zeros((n + 1, w), dtype=dtype, device=dev)
     step = 0
     while True:
-        fin, pos, widx, next_q = lane_refill(
-            pos, widx, next_q, pool_len, qid, q=q, wq=wq, n_r=n_r
-        )
-        active, u_p, u_prev = lane_frontier(pool, widx, pos, n)
-        thr = lane_thresholds(pos, sqrt_c=sqrt_c, eps_p=eps_p)
-        scores, total = level_fn(scores, total, fin, u_p, u_prev, thr)
-        pos = torch.where(active, pos - 1, pos)
+        with span("fused_serve.level"):
+            fin, pos, widx, next_q = lane_refill(
+                pos, widx, next_q, pool_len, qid, q=q, wq=wq, n_r=n_r
+            )
+            active, u_p, u_prev = lane_frontier(pool, widx, pos, n)
+            thr = lane_thresholds(pos, sqrt_c=sqrt_c, eps_p=eps_p)
+            scores, total = level_fn(scores, total, fin, u_p, u_prev, thr)
+            pos = torch.where(active, pos - 1, pos)
         step += 1
-        if not lane_continue(step, pos, next_q, n_r=n_r, max_steps=max_steps):
+        with span("fused_serve.continue"):
+            more = lane_continue(step, pos, next_q, n_r=n_r, max_steps=max_steps)
+        if not more:
             break
-    # safety-net flush (no-op unless max_steps was hit)
-    total = total + torch.where((pos == 1)[None, :], scores, torch.zeros_like(scores))
+    with span("fused_serve.epilogue"):
+        # safety-net flush (no-op unless max_steps was hit)
+        total = total + torch.where((pos == 1)[None, :], scores, torch.zeros_like(scores))
 
-    # --- per-query segment reduction + epilogue ---------------------------
-    return serve_epilogue(
-        total[:n].float().reshape(n, q, wq).sum(dim=2).T, us, n_r=n_r,
-        eps_t=eps_t, truncation_shift=truncation_shift, top_k=top_k,
-    )
+        # --- per-query segment reduction + epilogue -----------------------
+        return serve_epilogue(
+            total[:n].float().reshape(n, q, wq).sum(dim=2).T, us, n_r=n_r,
+            eps_t=eps_t, truncation_shift=truncation_shift, top_k=top_k,
+        )
 
 
 def query_uniforms(q: int, *, seeds, uniforms, n_r: int, max_len: int,

@@ -6,8 +6,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch.spans import span
 from repro_torch.training.tree import as_tree, leaves, tree_map, unflatten
 
 
@@ -35,16 +35,16 @@ def make_train_step(
     mean of the parts' and each metric the mean of its parts'.
     ``grad_transform`` maps the gradient tree (``training/compression.py``)
     before the optimizer.  The forward passes and the optimizer's update
-    run inside ``torch.profiler.record_function`` ranges
-    ("train_step.forward", "train_step.update"), so a profile splits a
-    step's device time into forward, update and (the rest) backward.
+    run inside program spans (``repro_torch.spans``: "train_step.forward",
+    "train_step.update"), so a profile splits a step's device time into
+    forward, update and (the rest) backward.
     """
 
     def step(params, opt_state, batch):
         tree = as_tree(params)
         flat = leaves(tree)
         if microbatches == 1:
-            with record_function("train_step.forward"):
+            with span("train_step.forward"):
                 loss, metrics = loss_fn(params, batch)
             flat_g = _grads(loss, flat)
             loss = loss.detach()
@@ -59,7 +59,7 @@ def make_train_step(
                       for p in flat]
             loss, ms = 0.0, []
             for i in range(microbatches):
-                with record_function("train_step.forward"):
+                with span("train_step.forward"):
                     l, m = loss_fn(params, tree_map(lambda x: x[i], parts))
                 for acc, g in zip(flat_g, _grads(l, flat)):
                     acc.add_(g)
@@ -71,7 +71,7 @@ def make_train_step(
         grads = unflatten(tree, flat_g)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        with record_function("train_step.update"):
+        with span("train_step.update"):
             params, opt_state, opt_metrics = optimizer.update(grads, opt_state, params)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics

@@ -2680,11 +2680,12 @@ def shard_phase(h, params, nodes, full_lane_ms: float) -> dict:
 #   seed=0); the generator's dedup keeps about 7.5 edges a node, so about
 #   9.7 M).  The reason is one card's memory for serve_batch: its step
 #   carries a [n_pad, Q * walk_chunk] = [n_pad, 2,048] fp32 frontier, 341 GB
-#   at the full n and 10.66 GB at the cut.  The step's peak, computed from
-#   the code: the frontier, the push accumulator and its weighted copy, and
-#   one 268 MB gathered slice (GATHER_BUDGET_BYTES): about 32 GB at 1
-#   block, about 35 GB at 4 blocks on one card (the all-gathered copy), so
-#   the cut is the largest power of two under 70 GB.
+#   at the full n and 10.66 GB at the cut.  The step's peak when the cut
+#   was chosen (the push was a gather and an index_add_): the frontier, the
+#   push accumulator and its weighted copy, and one 268 MB gathered slice
+#   (GATHER_BUDGET_BYTES): about 32 GB at 1 block, about 35 GB at 4 blocks
+#   on one card (the all-gathered copy), so the cut is the largest power of
+#   two under 70 GB.  The spmm_csr push holds no accumulator or slice.
 # The shapes (serve_batch: 8 queries x 256 walks; serve_online: 1 x 256),
 # c, eps_a, delta and max_len (12: make_params at the cut n, as at the full
 # n) are the config's.
@@ -2783,6 +2784,75 @@ def untied_count(vals, tol: float) -> int:
     return int(untied.sum())
 
 
+# columns of the spmm_csr check against float64 sums (a float64 copy of the
+# whole [n_pad, 2,048] frontier and its sums would not fit beside the step).
+# The plain fp32 version is no truth there: the production graph's hub has
+# in-degree n - 1, and index_add_ keeps one running fp32 sum a row over its
+# 1.3 M terms where the kernel adds 128-slot pieces; the two differed by
+# 2.85e-5 at scale 1 on an H100, over FP32_RTOL
+CSR_CHECK_COLS = 256
+
+
+def csr_kernel_row(sg, sqrt_c: float, width: int, dev) -> dict:
+    """``spmm_csr`` at the production step's shape: one push of block 0 of
+    ``sg`` (its in-CSR, the hub cut into many pieces) over a random ``[n_pad,
+    width]`` fp32 frontier, held at FP32_RTOL to float64 sums of the same
+    rows (``spmm_csr_ref`` on a float64 copy of the first CSR_CHECK_COLS
+    columns), beside the plain fp32 version on the same card tensors, and
+    bit for bit on a second launch; the kernel's device time,
+    one cold call of the plain version, the ``index_add_`` push it replaced
+    (``bucket_push``, in the row's library column: no library kernel does
+    this) and two byte bounds: the least bytes (``csr_work``) and each live
+    edge's source row gathered once (what the design reads).  Returns the
+    kernel row."""
+    import torch
+
+    from repro_torch.core.distributed import bucket_push, push_weights
+    from repro_torch.kernels.spmm_ell.ops import csr_work, spmm_csr
+    from repro_torch.kernels.spmm_ell.ref import spmm_csr_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    full = torch.rand((sg.n_pad, width), generator=gen, device=dev)
+    w = push_weights(sg, sqrt_c)[0]
+    live = int(sg.counts[0])
+    csr = dict(indptr=sg.indptr[0], row_len=sg.in_deg[0], base=sg.base[0])
+
+    def kernel():
+        return spmm_csr(sg.indices[0], full, w, **csr, live=live)
+
+    out = kernel()
+    p_ms, ref = plain_ms(lambda: spmm_csr_ref(sg.indices[0], full, w, **csr))
+    cols = slice(0, CSR_CHECK_COLS)
+    exact = spmm_csr_ref(sg.indices[0], full[:, cols].double(), w.double(), **csr)
+    err = fp32_err(out[:, cols], exact)
+    plain_err = float((ref[:, cols].double() - exact).abs().max())
+    vs_plain = float((out - ref).abs().max())
+    del ref, exact
+    require(torch.equal(kernel(), out), "spmm_csr: bits differ on a second launch")
+    ms = time_ms(kernel, 3)
+    yard_ms = time_ms(lambda: bucket_push([full], sg.src_sh, sg.dst_sh, [live], [w],
+                                          rows=sg.rows, n_pad=sg.n_pad,
+                                          edge_chunks=8), 1)
+    bound, by = bound_ms(csr_work(sg.indices[0], full, w, **csr, live=live))
+    gathered = live * width * full.element_size()
+    log(f"spmm_csr (block 0's in-CSR: {live} live edges, largest in-degree "
+        f"{int(sg.in_deg[0].max())}; [{sg.n_pad}, {width}] fp32): max abs err "
+        f"against float64 sums {err:.3e} (the plain fp32 version's {plain_err:.3e}; "
+        f"kernel vs plain {vs_plain:.3e} over all columns); kernel {ms:.3f} ms, plain "
+        f"{p_ms:.1f} ms, the index_add_ push {yard_ms:.3f} ms; least-bytes bound "
+        f"{bound:.3f} ms ({by}), each live edge's source row once "
+        f"{gathered / 1e9:.2f} GB = {byte_bound_ms(gathered):.3f} ms "
+        f"({byte_bound_ms(gathered) / ms:.1%} of it); bits equal on a second run")
+    del full, out
+    torch.cuda.empty_cache()
+    return dict(name="spmm_csr", route="cuda",
+                source="src/repro_torch/kernels/csrc/spmm_ell.cu",
+                replaces="none (the reference's push is a segment sum)",
+                max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by=by, library_ms=yard_ms)
+
+
 def production_phase(dev) -> dict:
     """The paper's production serve step (``arch.build_with_cfg("probesim",
     ...)``) on a Twitter-shaped graph (the probesim CONFIG cut by
@@ -2792,8 +2862,13 @@ def production_phase(dev) -> dict:
     to each query's largest score, estimates within 1e-5 of the plain local probe
     on the same walks, 4 blocks within 1e-5 of 1, the ring within 1e-5
     (bf16 PROD_BF16_RTOL) of the all-gather step, ids equal where untied;
-    one profiled serve_batch step; the smoke bundles.  The step launches
-    none of the four kernels; returns their (zero) launches."""
+    one profiled serve_batch step; the smoke bundles.  ``spmm_csr``
+    against its plain version at the serve_batch step's shape
+    (``csr_kernel_row``); the all-gather step's push launches it once a
+    level and block (counted over each bundle's steps, none on the ring;
+    the profiled step holds 11 launches and no ``index_add_`` or gather
+    kernel); none of the four ported kernels launches.  Returns the
+    launches of each kernel (the four: zero) and the ``spmm_csr`` row."""
     import dataclasses
 
     import numpy as np
@@ -2810,6 +2885,7 @@ def production_phase(dev) -> dict:
     from repro_torch.core.ring import build_ring_graph
     from repro_torch.core.walks import make_generator
     from repro_torch.graph import graph_from_edges, powerlaw_graph
+    from repro_torch.kernels.spmm_ell.ops import spmm_csr
     from repro_torch.launch.mesh import ShardMesh
 
     t_phase = time.perf_counter()
@@ -2848,6 +2924,12 @@ def production_phase(dev) -> dict:
     cpu_sg = build_sharded_graph(src, dst, n, mesh=ShardMesh(["cpu"]),
                                  pad_nodes=128, pad_edges=4096)
     coo = graph_from_edges(src, dst, n, device=dev)
+    serve_batch = next(x for x in shapes_for("probesim") if x.name == "serve_batch")
+    csr_row = csr_kernel_row(graphs["auto1"], sqrt_c,
+                             serve_batch.dims["queries"] * serve_batch.dims["walk_chunk"],
+                             dev)
+    spmm_csr.launches = 0  # from here on, the launches of the paths
+    csr_launches = 0
     cand = np.flatnonzero(deg >= 1)
     picked = np.random.default_rng(0).choice(cand, 8, replace=False)
     variants = {"auto1": (cfg, 1), "auto4": (cfg, PROD_S),
@@ -2893,15 +2975,30 @@ def production_phase(dev) -> dict:
             # writes the next once, and reads the edges (src, dst) once
             level = 2 * n_pad * q * b * wire + len(src) * 8
             old_bound = byte_bound_ms((params.max_len - 1) * level)
+            csr_launches += spmm_csr.launches
+            spmm_csr.launches = 0
             out[name] = production_cell(
                 f"{shape.name} {name}", bundle, g, queries, (cont, pick),
                 1000 * si, cols=q * b,
                 exch=exchange_bytes(s, n_pad, q * b, wire), bound=old_bound)
+            # the checked step and PROD_REPS timed ones: the all-gather
+            # push is one spmm_csr launch a level and block, the ring's none
+            want = (0 if name.startswith("ring")
+                    else (1 + PROD_REPS) * (params.max_len - 1) * s)
+            require(spmm_csr.launches == want,
+                    f"{shape.name} {name}: {spmm_csr.launches} spmm_csr launches "
+                    f"in {1 + PROD_REPS} steps, want {want}")
             count_cut(f"production {shape.name} {name}", bundle, g, queries,
                       (cont, pick), out[name][2], old_bound)
             if name == "auto1" and si == 0:
-                profile("serve_batch step (auto, 1 block)",
-                        lambda: bundle.step(g, dict(queries=queries, seed=7)))
+                kernels = profile("serve_batch step (auto, 1 block)",
+                                  lambda: bundle.step(g, dict(queries=queries, seed=7)))
+                pushes = sum(c for k, c in kernels.items() if "CsrRows" in k)
+                old_ops = [k for k in kernels if "indexFuncLargeIndex" in k
+                           or "vectorized_gather_kernel" in k]
+                require(pushes == params.max_len - 1 and not old_ops,
+                        f"profiled step: {pushes} spmm_csr launches (want "
+                        f"{params.max_len - 1}), old push kernels {old_ops}")
             del bundle
         # the plain local check on the same walks
         torch.cuda.synchronize()
@@ -2962,12 +3059,13 @@ def production_phase(dev) -> dict:
                 and bool(torch.isfinite(vals).all()), f"smoke {shape}")
     launches = {k: fn.launches for k, fn in counters.items()}
     require(not any(launches.values()),
-            f"the production step launched a kernel: {launches}")
+            f"the production step launched a ported kernel: {launches}")
+    launches["spmm_csr"] = csr_launches + spmm_csr.launches
     del graphs, coo, cpu_sg
     torch.cuda.empty_cache()
     log(f"production phase: {time.perf_counter() - t_phase:.1f} s "
         f"(ms/step {rows}); launches {launches}; card: {card()}")
-    return launches
+    return launches, csr_row
 
 
 STREAM_N = 34_546
@@ -4982,6 +5080,11 @@ def count_cut(name, bundle, g, queries, uniforms, ms, old_bound_ms) -> None:
             f"{name}: meta counts {mc.totals()} != card counts {counter.totals()}")
     log(f"  {name}: the meta count equals the card's ({time.perf_counter() - t0:.1f} s "
         f"on meta); the counter's live peak {counter.peak_bytes / 1e9:.2f} GB")
+    if g.mesh.shards > 1 and len({str(d) for d in g.mesh.devices}) == 1:
+        # every block on this one card: the exchange is a copy within HBM,
+        # not a transfer over NVLink, so the bound takes its bytes at HBM's
+        # rate (the dry run keeps NVLink's: there each block is a card)
+        rep.finalize(dict(hw(), ici_bw=hw()["hbm_bw"]))
     record_count(name, ms, rep, counter, old_bound_ms)
 
 
@@ -5138,7 +5241,7 @@ def run(procs, out_dir: str) -> int:
     shard_launches = shard_phase(h, params, nodes, rows["lane_probe"]["ms"])
     del h
     torch.cuda.empty_cache()
-    prod_launches = production_phase(dev)
+    prod_launches, rows["spmm_csr"] = production_phase(dev)
     dyn_launches = dynamic_phase(dev)
     for k, v in dynamic_traffic(dev).items():
         dyn_launches[k] += v
@@ -5155,14 +5258,13 @@ def run(procs, out_dir: str) -> int:
     # launches none (LM training runs the plain attention: the kernel has no
     # backward; the GNN layers are scatter-adds, as the reference's; Wide &
     # Deep is gathers and GEMMs); the recsys pipeline's SimRank retrieval runs
-    # lane_probe
+    # lane_probe; spmm_csr runs only in the production phase
+    phases = (launches, acc_launches, svc_launches, shard_launches,
+              prod_launches, dyn_launches, stream_launches, lm_launches,
+              moe_launches, train_launches, gnn_launches, recsys_launches)
     for name, row in rows.items():
-        row["launches"] = (launches[name] + acc_launches[name]
-                           + svc_launches[name] + shard_launches[name]
-                           + prod_launches[name] + dyn_launches[name]
-                           + stream_launches[name] + lm_launches[name]
-                           + moe_launches[name] + train_launches[name]
-                           + gnn_launches[name] + recsys_launches[name])
+        row["launches"] = (prod_launches[name] if name == "spmm_csr"
+                           else sum(p[name] for p in phases))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))

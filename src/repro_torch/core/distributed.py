@@ -25,16 +25,19 @@ the host once per level, as the local serve does.
 * ``probe_lanes_sharded`` — the lane-batched probe with the all-gather
   push: each level runs the ``lane_probe`` kernel per shard over the
   gathered frontier (``use_kernel``), or the plain level with a COO
-  ``index_add_`` push over the shard's source-sorted bucket.
+  ``index_add_`` push over the shard's source-sorted bucket
+  (``bucket_push``).
 * ``probe_walks_sharded`` — the per-level telescoped probe over a walk
   matrix (the mesh epoch's probe with the kernel off, and the production
-  step's).
+  step's); its push, ``coo_push``, runs the ``spmm_csr`` kernel over each
+  block's in-CSR where the graph has one, else ``bucket_push``.
 
 The production serve step (the paper's ``probesim`` arch family):
 
 * ``ShardedGraph`` / ``build_sharded_graph`` — the production layout: per
-  row block its ``in_deg`` and ``indptr`` rows, its in-neighbour lists and
-  its destination-partitioned COO bucket sorted by source;
+  row block its ``in_deg`` and ``indptr`` rows and its in-neighbour lists
+  (the sampler and the push read them), and its destination-partitioned
+  COO bucket sorted by source;
 * ``walks_from_uniforms_csr`` / ``sample_walks_sharded`` — the CSR walk
   sampler, each step served by the block that owns the walk's node;
 * ``make_serve_step`` — sample, probe (``probe_walks_sharded``), mean over
@@ -95,15 +98,15 @@ class ShardedGraph:
     * ``indices`` int32 ``[E]`` — the block's in-neighbour lists (its CSR
       values: the reference's ``indices[base[s] : base[s] + counts[s]]``),
       edges sorted stably by destination, padded with ``n_pad``; the
-      sampler reads them;
+      sampler and the push read them;
     * ``src_sh`` / ``dst_sh`` int32 ``[E]`` — the block's
       destination-partitioned COO bucket (global ids, padded with
-      ``n_pad``), which the push reads.  It holds the same edges as
-      ``indices`` sorted by (source, destination): frontier rows are
-      gathered in address order, and a hub's in-edges are spread over the
-      bucket instead of adjacent, so ``index_add_``'s atomics do not queue
-      on one row.  The reference likewise keeps its COO ``src`` / ``dst``
-      apart from ``indices``;
+      ``n_pad``): the same edges as ``indices`` sorted by (source,
+      destination).  No route of the port reads it since the push went
+      to the in-CSR (``bucket_push`` runs on ``ShardEpochGraph``'s
+      buckets); it stays for the tests' shape parity with the reference,
+      which keeps its COO ``src`` / ``dst`` apart from ``indices``, until a
+      later change drops it (ROADMAP P3);
     * ``counts`` / ``base`` — host ints: the block's live edges and the
       global CSR offset of its first edge.
 
@@ -111,8 +114,8 @@ class ShardedGraph:
     also the walks' sentinel; ``m_pad`` is the reference's padded edge count
     (the port's blocks are padded to the largest block instead).  The
     sampler reads ``indptr`` / ``in_deg`` / ``indices``; the push
-    (``probe_walks_sharded``) reads ``src_sh`` / ``dst_sh`` / ``counts`` /
-    ``in_deg``.
+    (``coo_push``, the ``spmm_csr`` kernel) reads ``indptr`` / ``indices``
+    / ``base`` / ``in_deg``, and ``counts`` for its counted work.
     """
 
     indptr: list
@@ -448,11 +451,41 @@ def lane_probe_block(
     ]
 
 
-def coo_push(fulls, src_sh, dst_sh, live, w, *, rows: int, n_pad: int,
-             edge_chunks: int = 1):
+def coo_push(fulls, g, w, *, live=None, edge_chunks: int = 1):
+    """One renormalized push of every row block of ``g``: shard s's rows
+    ``w[s][v] * sum over the in-edges (u, v) of fulls[s][u]``, where
+    ``fulls[s]`` is the gathered ``[n_pad, C]`` frontier on shard s's
+    device; returns the per-shard list of ``[rows, C]`` fp32 blocks.
+
+    The name is the push's first form.  On a ``ShardedGraph`` (the route
+    follows the graph's type) it is no COO push: each shard runs the
+    ``spmm_csr`` kernel over its block's in-CSR (``indptr``, ``indices``,
+    ``base``, ``in_deg``), one writer a row in destination order, so there
+    are no atomics and no gathered temporary, and ``edge_chunks`` and
+    ``live`` are not read.  A graph of destination-partitioned COO buckets
+    alone (``core.epoch.ShardEpochGraph``) takes ``bucket_push`` over its
+    buckets' first ``live[s]`` edges (by default ``g.counts``) in
+    ``edge_chunks`` slices."""
+    if isinstance(g, ShardedGraph):
+        from repro_torch.kernels.spmm_ell.ops import spmm_csr
+
+        rows = g.rows
+        return [spmm_csr(g.indices[s], full, ws, indptr=g.indptr[s],
+                         row_len=row_block(g.in_deg[s], s, rows),
+                         base=g.base[s], live=int(g.counts[s]))
+                for s, (full, ws) in enumerate(zip(fulls, w))]
+    if live is None:
+        live = [int(c) for c in g.counts]
+    return bucket_push(fulls, g.src_sh, g.dst_sh, live, w, rows=g.rows,
+                       n_pad=g.n_pad, edge_chunks=edge_chunks)
+
+
+def bucket_push(fulls, src_sh, dst_sh, live, w, *, rows: int, n_pad: int,
+                edge_chunks: int = 1):
     """One renormalized COO push of every row block: shard s gathers the
     sources of its bucket's first ``live[s]`` edges from ``fulls[s]`` (the
-    gathered frontier) and adds them into its own rows, scaled by ``w[s]``.
+    gathered frontier) and adds them into its own rows with ``index_add_``
+    (a float atomic per edge and column on the card), scaled by ``w[s]``.
     The live prefix goes in ``edge_chunks`` slices or more: each gathered
     ``[slice, W]`` fp32 block stays under ``GATHER_BUDGET_BYTES``."""
     out = []
@@ -551,8 +584,8 @@ def probe_lanes_sharded(
         live = [int(c) for c in st.counts]
 
         def push(blocks):
-            return coo_push(exchange(blocks), src_sh, dst_sh, live, w,
-                            rows=rows, n_pad=n_pad)
+            return bucket_push(exchange(blocks), src_sh, dst_sh, live, w,
+                               rows=rows, n_pad=n_pad)
 
         level_fn = lane_level(push, mesh=mesh, rows=rows, eps_p=eps_p)
 
@@ -611,15 +644,17 @@ def probe_walks_sharded(
     edge_chunks: int = 8,
     live=None,
 ) -> Tensor:
-    """Telescoped probe of every walk column at once over the sharded COO
-    buckets; returns scores [n_pad, C] on shard 0's device.
+    """Telescoped probe of every walk column at once over the row blocks;
+    returns scores [n_pad, C] on shard 0's device.
 
     Injection and exclusion touch one entry per column (``inject`` /
     ``exclude``: the reference's row-id compares, entry for entry); each
-    level all-gathers the frontier and pushes every bucket in
-    ``edge_chunks`` slices (``coo_push``).  ``live`` (host ints, one per
-    shard) bounds each bucket's push; by default it is read from
-    ``st.counts`` once.
+    level all-gathers the frontier and calls ``coo_push`` once.  On a
+    ``ShardedGraph`` that is the ``spmm_csr`` kernel over each block's
+    in-CSR (``edge_chunks`` and ``live`` unused); on a graph with only COO
+    buckets (``ShardEpochGraph``) the ``index_add_`` push in
+    ``edge_chunks`` slices, ``live`` (host ints, one per shard) bounding
+    each bucket (by default ``st.counts``).
     """
     mesh = st.mesh
     rows = st.rows
@@ -627,8 +662,6 @@ def probe_walks_sharded(
     cols = mesh.broadcast(walks)
     ar = [torch.arange(c, device=d) for d in mesh.devices]
     w = push_weights(st, sqrt_c)
-    if live is None:
-        live = [int(x) for x in st.counts]
     scores = [torch.zeros((rows, c), device=d) for d in mesh.devices]
     for p in range(length, 1, -1):
         for s, sc in enumerate(scores):
@@ -637,8 +670,7 @@ def probe_walks_sharded(
                 sc.masked_fill_(sc <= eps_p / (sqrt_c ** (p - 1)), 0.0)
         fulls = mesh.all_gather_rows(scores) if st.shards > 1 else scores
         with span("serve_step.push"):
-            scores = coo_push(fulls, st.src_sh, st.dst_sh, live, w, rows=rows,
-                              n_pad=st.n_pad, edge_chunks=edge_chunks)
+            scores = coo_push(fulls, st, w, live=live, edge_chunks=edge_chunks)
         for s, sc in enumerate(scores):
             exclude(sc, cols[s][:, p - 2], s, rows, ar[s])
     return mesh.gather_rows(scores)
@@ -673,9 +705,11 @@ def make_serve_step(cfg, *, queries: int, walk_chunk: int, max_len: int,
     int32, topk_val [Q, k] fp32)`` on the mesh's home device.  One step
     samples ``walk_chunk`` walks per query from ``gen`` (or takes the draws
     ``uniforms = (cont, pick)``, each ``[max_len - 1, Q * walk_chunk]``),
-    probes them over ``sg``'s buckets in ``edge_chunks`` slices a level,
-    and ranks the mean over the chunk; a serving engine loops steps and
-    folds their means.
+    probes them over ``sg`` (one ``spmm_csr`` launch a level and block:
+    ``coo_push``), and ranks the mean over the chunk; a serving engine
+    loops steps and folds their means.  ``edge_chunks`` bounds only the
+    COO route's gathered slices (``bucket_push``, which a ``ShardedGraph``
+    does not take); the CSR route gathers into no temporary.
     """
     sqrt_c = math.sqrt(cfg.c)
 
@@ -684,7 +718,7 @@ def make_serve_step(cfg, *, queries: int, walk_chunk: int, max_len: int,
                            walk_chunk=walk_chunk, max_len=max_len,
                            sqrt_c=sqrt_c)
         scores = probe_walks_sharded(sg, walks, sqrt_c=sqrt_c,
-                                     edge_chunks=edge_chunks, live=sg.counts)
+                                     edge_chunks=edge_chunks)
         return serve_topk(scores, query_nodes, queries=queries,
                           walk_chunk=walk_chunk, top_k=top_k)
 

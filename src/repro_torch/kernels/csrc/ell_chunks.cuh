@@ -19,6 +19,14 @@
 //   in piece order and finishes the row.  No float atomics: the same inputs
 //   give the same bits on every run.
 //
+// A Rows policy says where row v's ids start: ``EllRows``, row v of the
+// [R, K] ELL table ``nbrs`` (lane_probe, spmm_ell, probe_push: the default),
+// or ``CsrRows``, ``nbrs + row_ptr[v] - base`` in an in-CSR block's
+// ``indices`` (spmm_csr).  Slot k of row v is the k-th id from there
+// either way.  The ELL address stays written out at its two uses (under
+// ``if constexpr``, not behind a member function): so written, the ELL
+// kernels compile to the SASS they had without the policy.
+//
 // An Op supplies the per-kernel parts:
 //   bool live(int x)                  slot id x contributes (uniform in a group)
 //   void load(int x, float (&v)[VEC]) the gathered values of id x
@@ -71,6 +79,20 @@ struct Plan {
   float* partial;         // [n_pieces, width] fp32 piece sums
   int max_slots;          // ids one chunk stages (shared memory)
   int max_rows;           // rows of one packed chunk
+};
+
+// Rows of an ELL table: row v's ids start at nbrs + v * K.
+struct EllRows {
+  static constexpr bool kCsr = false;
+};
+
+// Rows of an in-CSR block, ``nbrs`` its ``indices``: row v's ids start at
+// row_ptr[v] - base (row_ptr holds the global CSR offsets of the block's
+// rows, base the global offset of its first edge); K is not read.
+struct CsrRows {
+  static constexpr bool kCsr = true;
+  const int* __restrict__ row_ptr;
+  int base;
 };
 
 template <typename T, int VEC>
@@ -149,11 +171,11 @@ __device__ __forceinline__ void gather(const Op& op, const int* ids, int begin,
   }
 }
 
-template <int VEC, class Op>
+template <int VEC, class Op, class Rows>
 __device__ __forceinline__ void run_packed(const Plan& P, const Op& op,
                                            const int* __restrict__ nbrs, long long K,
                                            int a, int b, const Layout& L, int* ids,
-                                           int* offs, int* rows) {
+                                           int* offs, int* rows, Rows R) {
   const int nr = b - a;
   const int base = __ldg(P.short_ptr + a);
   for (int i = threadIdx.x; i <= nr; i += kThreads) {
@@ -175,7 +197,10 @@ __device__ __forceinline__ void run_packed(const Plan& P, const Op& op,
           const int mid = (lo + hi) >> 1;
           if (offs[mid] <= f) lo = mid; else hi = mid;
         }
-        x[s] = __ldg(nbrs + rows[lo] * K + (f - offs[lo]));
+        if constexpr (Rows::kCsr)
+          x[s] = __ldg(nbrs + (__ldg(R.row_ptr + rows[lo]) - R.base) + (f - offs[lo]));
+        else
+          x[s] = __ldg(nbrs + rows[lo] * K + (f - offs[lo]));
       }
     }
 #pragma unroll
@@ -196,14 +221,18 @@ __device__ __forceinline__ void run_packed(const Plan& P, const Op& op,
   }
 }
 
-template <int VEC, class Op>
+template <int VEC, class Op, class Rows>
 __device__ __forceinline__ void run_split(const Plan& P, const Op& op,
                                           const int* __restrict__ nbrs, long long K,
                                           int width, int4 ch, const Layout& L,
-                                          int* ids, float* red) {
+                                          int* ids, float* red, Rows R) {
   const int l = ch.x - 1, k0 = ch.y, len = ch.z - ch.y, p = ch.w;
   const int v = __ldg(P.long_rows + l);
-  const int* row = nbrs + v * K + k0;
+  const int* row;
+  if constexpr (Rows::kCsr)
+    row = nbrs + (__ldg(R.row_ptr + v) - R.base) + k0;
+  else
+    row = nbrs + v * K + k0;
   for (int f0 = 0; f0 < len; f0 += kStage * kThreads) {
     int x[kStage];
 #pragma unroll
@@ -278,10 +307,11 @@ inline size_t smem_bytes(const Plan& P, int vec) {
          sizeof(float) * (size_t)kThreads * vec;
 }
 
-template <int VEC, class Op>
+template <int VEC, class Op, class Rows = EllRows>
 __device__ __forceinline__ void run_chunk(const Plan& P, const Op& op,
                                           const int* __restrict__ nbrs, int K,
-                                          int width, const Layout& L) {
+                                          int width, const Layout& L,
+                                          Rows R = Rows()) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);
   int* ids = reinterpret_cast<int*>(red + kThreads * VEC);
@@ -289,9 +319,9 @@ __device__ __forceinline__ void run_chunk(const Plan& P, const Op& op,
   int* rows = offs + P.max_rows + 1;
   const int4 ch = P.chunks[blockIdx.x];
   if (ch.x == 0)
-    run_packed<VEC>(P, op, nbrs, K, ch.y, ch.z, L, ids, offs, rows);
+    run_packed<VEC>(P, op, nbrs, K, ch.y, ch.z, L, ids, offs, rows, R);
   else
-    run_split<VEC>(P, op, nbrs, K, width, ch, L, ids, red);
+    run_split<VEC>(P, op, nbrs, K, width, ch, L, ids, red, R);
 }
 
 }  // namespace ell

@@ -18,6 +18,26 @@
 // sentinel slot (>= n) would gather the zero dump row, so it is skipped
 // without touching scores.  fp32 accumulation for fp32, fp16 and bf16
 // storage.
+//
+// spmm_csr, the same sum over the rows of an in-CSR block (the production
+// serve step's push, core/distributed.py::coo_push):
+//
+//   out[v,b] = w[v] * sum_{k < row_len[v]} scores[indices[row_ptr[v] - base + k], b]
+//
+// for the R rows of one row block, gathering from the [n, B] all-gathered
+// frontier.  Replaces no Pallas kernel: the JAX package's push is a segment
+// sum over COO edges, which the port ran as a gather and an index_add_ (one
+// float atomic per edge and column).  Here each row has one writer and the
+// weight is applied in the row's epilogue: no atomics, no gathered
+// temporary, no zeroed accumulator.  Bound on the H100: the gathered source
+// rows, each live edge's source row read from HBM once (m x B x 4 bytes:
+// 376 GB, 112 ms a level at the Twitter/32 step's 45.9 M edges and B =
+// 2,048).  Column tiles are launch_layout's full rows (1,024 fp32 columns,
+// 4 KB contiguous a gather).  Narrow tiles whose [n, tile] frontier slice
+// would stay in the 50 MB L2 (8 fp32 columns: 41.7 MB at n = 1.3 M) were
+// measured slower at every width (tools/spmm_csr_sweep.py): 32-byte
+// gathers and ids re-read once a tile cost more than reading 4 KB rows
+// from HBM, so the tile does not depend on the frontier's size.
 #include "ell_chunks.cuh"
 
 using namespace ell;
@@ -54,36 +74,38 @@ struct SpmmOp {
   }
 };
 
-template <typename T, int VEC>
+// Rows is EllRows for spmm_ell (row v's ids at nbrs + v * K) and CsrRows
+// for spmm_csr (at indices + row_ptr[v] - base; K is not read).
+template <typename T, int VEC, class Rows>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) spmm_ell_kernel(
     const int* __restrict__ nbrs, const T* __restrict__ scores,
     const float* __restrict__ weights, T* __restrict__ out, int K, int n, int B,
-    int tc, Plan P) {
+    int tc, Plan P, Rows R) {
   const Layout L = make_layout<VEC>(tc, B);
   const SpmmOp<T, VEC> op{scores, out, weights, B, n, L.c0};
-  run_chunk<VEC>(P, op, nbrs, K, B, L);
+  run_chunk<VEC>(P, op, nbrs, K, B, L, R);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, class Rows>
 static int launch_vec(const int* nbrs, const T* scores, const float* weights,
                       T* out, int K, int n, int B, int tc, const Plan& P,
-                      int n_chunks, int tiles, cudaStream_t stream) {
+                      int n_chunks, int tiles, cudaStream_t stream, Rows R) {
   const size_t smem = smem_bytes(P, VEC);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        spmm_ell_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        spmm_ell_kernel<T, VEC, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  spmm_ell_kernel<T, VEC><<<dim3(n_chunks, tiles), kThreads, smem, stream>>>(
-      nbrs, scores, weights, out, K, n, B, tc, P);
+  spmm_ell_kernel<T, VEC, Rows><<<dim3(n_chunks, tiles), kThreads, smem, stream>>>(
+      nbrs, scores, weights, out, K, n, B, tc, P, R);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, class Rows = EllRows>
 static int launch(const void* nbrs, const void* scores, const void* weights,
                   void* out, int K, int n, int B, const Plan& P, int n_chunks,
-                  int vec, int tc, int tiles, void* stream) {
+                  int vec, int tc, int tiles, void* stream, Rows R = Rows()) {
   if (n_chunks == 0 || B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int* nb = (const int*)nbrs;
@@ -91,12 +113,12 @@ static int launch(const void* nbrs, const void* scores, const void* weights,
   const float* w = (const float*)weights;
   T* o = (T*)out;
   switch (vec) {
-    case 1: return launch_vec<T, 1>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s);
-    case 2: return launch_vec<T, 2>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s);
-    case 4: return launch_vec<T, 4>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s);
+    case 1: return launch_vec<T, 1>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s, R);
+    case 2: return launch_vec<T, 2>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s, R);
+    case 4: return launch_vec<T, 4>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s, R);
     case 8:
       if constexpr (sizeof(T) <= 2)
-        return launch_vec<T, 8>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s);
+        return launch_vec<T, 8>(nb, sc, w, o, K, n, B, tc, P, n_chunks, tiles, s, R);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -120,3 +142,19 @@ static int launch(const void* nbrs, const void* scores, const void* weights,
 SPMM_ENTRY(spmm_ell_f32, float)
 SPMM_ENTRY(spmm_ell_f16, __half)
 SPMM_ENTRY(spmm_ell_bf16, __nv_bfloat16)
+
+extern "C" int spmm_csr_f32(const void* indices, const void* row_ptr,
+                            const void* scores, const void* weights, void* out,
+                            const void* chunks, const void* short_rows,
+                            const void* short_ptr, const void* long_rows,
+                            const void* long_first, void* counters, void* partial,
+                            int n_chunks, int max_slots, int max_rows, int base,
+                            int n, int B, int vec, int tc, int tiles,
+                            void* stream) {
+  const Plan P{(const int4*)chunks, (const int*)short_rows,
+               (const int*)short_ptr, (const int*)long_rows,
+               (const int*)long_first, (int*)counters, (float*)partial,
+               max_slots, max_rows};
+  return launch<float>(indices, scores, weights, out, 0, n, B, P, n_chunks, vec,
+                       tc, tiles, stream, CsrRows{(const int*)row_ptr, base});
+}

@@ -2,7 +2,9 @@
 
 ``lane_probe.cu``, ``spmm_ell.cu`` and ``probe_push.cu`` read slot k of
 row v only when ``k < row_len[v]`` (callers pass ``in_deg``: live slots
-come first in every ELL table the port builds or accepts).  One thread
+come first in every ELL table the port builds or accepts).  ``spmm_csr``
+runs the same plan over an in-CSR block, whose row v holds its
+``in_deg[v]`` ids from ``indptr[v] - base``.  One thread
 block runs one chunk of the plan; there are two kinds:
 
 * a **packed** chunk is a run of consecutive short rows (``row_len <=
@@ -154,8 +156,10 @@ _plans: collections.OrderedDict = collections.OrderedDict()
 _plans_lock = threading.Lock()
 
 
-def plan_of(row_len: Tensor, k_max: int) -> EllPlan:
-    """The ``CHUNK_SLOTS`` plan of ``row_len``, built on first use.
+def plan_of(row_len: Tensor, k_max: int, *,
+            chunk_slots: int | None = None) -> EllPlan:
+    """The plan of ``row_len`` at ``chunk_slots`` (by default
+    ``CHUNK_SLOTS``, read at the call), built on first use.
 
     Keyed on the tensor's memory (device, address, shape, stride) with the
     table width; a plan holds its ``row_len``, so that memory cannot be
@@ -163,13 +167,13 @@ def plan_of(row_len: Tensor, k_max: int) -> EllPlan:
     written in place since (``_version``).  Safe to call from several
     threads: a plan is built once per change of ``row_len``.
     """
+    slots = CHUNK_SLOTS if chunk_slots is None else int(chunk_slots)
     key = (row_len.device, row_len.data_ptr(), tuple(row_len.shape),
-           row_len.stride(), int(k_max), CHUNK_SLOTS)
+           row_len.stride(), int(k_max), slots)
     with _plans_lock:
         plan = _plans.get(key)
         if plan is None or plan.version != row_len._version:
-            plan = _plans[key] = build_plan(row_len, k_max,
-                                            chunk_slots=CHUNK_SLOTS)
+            plan = _plans[key] = build_plan(row_len, k_max, chunk_slots=slots)
         _plans.move_to_end(key)
         while len(_plans) > CACHED_PLANS:
             _plans.popitem(last=False)

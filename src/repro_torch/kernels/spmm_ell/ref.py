@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the ELL SpMM (``csrc/spmm_ell.cu``).
+"""Plain PyTorch versions of the ELL and CSR SpMMs (``csrc/spmm_ell.cu``).
 
 ``out[v] = weights[v] * sum_{k < row_len[v]} scores[clip(nbrs[v, k], 0, n)]``
 over scores with the zero dump row at index n, gathered in row chunks
@@ -7,6 +7,11 @@ are fp32 whatever the storage dtype, as in the kernel.  With ``row_len =
 in_deg`` on a table whose live slots come first it equals the JAX
 package's ``spmm_ell_ref``.  Used by the CPU path of
 ``ops.spmm_ell_padded`` and by the on-card comparison only.
+
+``spmm_csr_ref`` is the same sum over the rows of an in-CSR block: each
+row's ids in slot order, gathered in edge slices under
+``GATHER_BUDGET_BYTES`` and added into the row in that order (the CPU's
+``index_add_`` is sequential), fp32.
 """
 from __future__ import annotations
 
@@ -75,3 +80,28 @@ def spmm_ell_ref(nbrs: Tensor, scores: Tensor, weights: Tensor, *,
     padded = torch.cat([scores, scores.new_zeros((1, scores.shape[1]))], dim=0)
     out = spmm_ell_padded_ref(nbrs, padded, weights, row_len=row_len)
     return out[:, 0] if squeeze else out
+
+
+def spmm_csr_ref(indices: Tensor, scores: Tensor, weights: Tensor, *,
+                 indptr: Tensor, row_len: Tensor, base: int) -> Tensor:
+    """indices [E] (the block's in-neighbour lists), scores [n, B], weights,
+    indptr and row_len [R] -> [R, B]:
+    ``out[v] = w[v] * sum_{k < row_len[v]} scores[indices[indptr[v] - base + k]]``,
+    ids >= n skipped; fp32 sums (float64 ones for float64 ``scores``),
+    stored in the dtype of ``scores``."""
+    r = row_len.shape[0]
+    n, b = scores.shape
+    dev = scores.device
+    lens = row_len.long().clamp(min=0)
+    first = torch.cumsum(lens, 0) - lens
+    total = int(lens.sum())
+    out = torch.zeros((r, b), dtype=torch.promote_types(scores.dtype, torch.float32),
+                      device=dev)
+    step = max(1, GATHER_BUDGET_BYTES // max(1, b * 4))
+    for a in range(0, total, step):
+        e = torch.arange(a, min(a + step, total), device=dev)
+        row = torch.searchsorted(first, e, right=True) - 1
+        src = indices[indptr.long()[row] - base + (e - first[row])].long()
+        keep = src < n
+        out.index_add_(0, row[keep], scores[src[keep]].to(out.dtype))
+    return (out * weights[:, None]).to(scores.dtype)

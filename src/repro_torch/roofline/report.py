@@ -25,7 +25,7 @@ MOVE_HINTS = {
     ("recsys", "collective"): "two-phase all-to-all over NVLink for table-parallel lookups",
     ("recsys", "compute"): "batch MLP is tiny; nothing to do",
     ("probesim", "collective"): "ring push over NVLink + bf16 frontier (push_mode=ring, frontier_dtype)",
-    ("probesim", "memory"): "segmented sum in place of index_add_'s atomics (queue 2 item 16); lane_probe / spmm_ell read live slots only",
+    ("probesim", "memory"): "spmm_csr reads each live edge's source row: skip the frontier's zero rows in early levels; lane_probe / spmm_ell read live slots only",
     ("probesim", "compute"): "frontier-sparsity-aware early levels",
 }
 

@@ -15,7 +15,7 @@ falls in at most one of them and is put down to that phase.
 | ``fused_serve.level`` | ``fused_serve``'s loop body: refill, frontier, thresholds, the level's push (``lane_probe``), the position update | level | ``portbench/metrics/level_issue_ms.py`` |
 | ``fused_serve.continue`` | ``fused_serve``: ``lane_continue``, the loop's one device-to-host read a level | level | ``portbench/metrics/level_sync_ms.py`` |
 | ``fused_serve.epilogue`` | ``fused_serve``: the safety-net flush and ``serve_epilogue`` | batch | idle-gap labels of ``portbench``'s breakdown |
-| ``serve_step.push`` | ``core/distributed.py::probe_walks_sharded``: each ``coo_push`` | push level | idle-gap labels of ``portbench``'s breakdown |
+| ``serve_step.push`` | ``core/distributed.py::probe_walks_sharded``: each ``coo_push`` (on a ``ShardedGraph`` one ``spmm_csr`` launch a block; else the ``index_add_`` push) | push level | idle-gap labels of ``portbench``'s breakdown |
 | ``train_step.forward`` | ``training/step.py``: each forward pass | microbatch | ``chip_smoke.py::profile_train`` |
 | ``train_step.update`` | ``training/step.py``: the optimizer's update | step | ``chip_smoke.py::profile_train`` |
 

@@ -2,8 +2,13 @@
 
 A traffic mix names its ``entry``; the harness imports
 ``portbench.entries.<entry>`` and builds its ``Cell(cfg, mix, seed,
-device, spans, control=False)``.  A new loop is a new module here; no
-file that exists needs an edit.  A ``Cell`` has:
+device, spans, devices=devices, control=False)``.  ``devices`` are the
+cell's ``chips`` cards in order (``cuda:0`` ..; on the CPU, ``chips``
+times ``cpu``) and ``device`` is ``devices[0]``: a loop on one card uses
+``device`` alone, a loop across cards puts its blocks on ``devices``.
+The harness synchronises and measures every card of ``devices``.  A new
+loop is a new module here; no file that exists needs an edit.  A
+``Cell`` has:
 
 * ``n``, ``graph`` (``deploy.make_graph``'s result) and ``b`` (the error
   budget);

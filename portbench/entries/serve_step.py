@@ -1,6 +1,7 @@
 """``serve_step``: the production serve step (``make_serve_step`` over
 ``build_sharded_graph``) on one row block: the CSR walk sampler and the
-COO push.
+push (``coo_push``: one ``spmm_csr`` launch a level over the block's
+in-CSR).
 
 Each unit is one step of ``queries`` top-k queries x ``walk_chunk``
 walks (one walk seed a step).  Mix keys: ``queries``, ``walk_chunk``,
@@ -17,7 +18,7 @@ from portbench.reference import simrank as ref
 
 
 class Cell:
-    def __init__(self, cfg, mix, seed, device, spans, *, control=False):
+    def __init__(self, cfg, mix, seed, device, spans, *, devices=(), control=False):
         from repro_torch.configs.base import ProbeSimConfig
         from repro_torch.core.distributed import build_sharded_graph, make_serve_step
         from repro_torch.launch.mesh import ShardMesh

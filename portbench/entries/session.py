@@ -18,7 +18,7 @@ from portbench.reference import simrank as ref
 
 
 class Cell:
-    def __init__(self, cfg, mix, seed, device, spans, *, control=False):
+    def __init__(self, cfg, mix, seed, device, spans, *, devices=(), control=False):
         from repro_torch.api.handle import GraphHandle
         from repro_torch.api.session import SimRankSession
 

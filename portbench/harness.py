@@ -10,6 +10,23 @@ each end-to-end metric's reader (``end_to_end/<metric>.py``) and each
 per-layer metric's (``metrics/<metric>.py``), both by the metric's name up
 to its first dot.
 
+Adding a cell, on one card or four, is exactly this and nothing else:
+
+* new files: the configuration (``configs/<config>.json``), the mix
+  (``traffic/<mix>.json``), an entry (``entries/<entry>.py``) only where
+  no loop there drives the cell, the limits (``limits/<cell>.json``), and
+  a reader for each new metric;
+* in ``BENCHMARK.json``: new ``configs`` and ``workloads`` entries (the
+  cell is named ``<config>.<mix>`` and asks for 1 or 4 ``chips``) and
+  new ``per_layer`` entries;
+* the new cell's name appended to the ``workloads`` list of each metric
+  it reports.
+
+A cell runs on its first ``chips`` cards, which its entry gets as
+``devices``; every one of them is synchronised at the window's ends and
+measured: the peak memory of the fullest, and ``busy_s`` as the mean of
+the cards' busy time.
+
 The window runs units until ``--seconds`` have passed and ends when the
 unit in flight ends: rates are taken over whole units and the whole time.
 """
@@ -25,7 +42,7 @@ from pathlib import Path
 import torch
 
 from portbench import check, roofline
-from portbench.tracing import Profile, Spans, breakdown, wrap
+from portbench.tracing import Profile, Spans, breakdown, synchronize, wrap
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -76,11 +93,20 @@ def entry(name: str):
     return importlib.import_module(f"portbench.entries.{name}").Cell
 
 
-def device_facts(device) -> dict:
-    if device.type == "cuda":
-        return dict(platform="gpu", kind=torch.cuda.get_device_name(device),
-                    count=1)
-    return dict(platform="cpu", kind="cpu", count=1)
+def cell_devices(device, chips: int) -> list[torch.device]:
+    """The cell's ``chips`` cards, ``cuda:0`` .. ``cuda:chips-1``; on a
+    device that is not CUDA (the CPU tests), ``chips`` times that device."""
+    device = torch.device(device or "cuda")
+    if device.type != "cuda":
+        return [device] * chips
+    return [torch.device("cuda", i) for i in range(chips)]
+
+
+def device_facts(devices) -> dict:
+    if devices[0].type == "cuda":
+        return dict(platform="gpu", kind=torch.cuda.get_device_name(devices[0]),
+                    count=len(devices))
+    return dict(platform="cpu", kind="cpu", count=len(devices))
 
 
 # ---------------------------------------------------------------------------
@@ -97,20 +123,21 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     spec = load_cell(workload, overrides)
     cfg, mix = spec["cfg"], spec["mix"]
-    device = torch.device(device or "cuda")
+    devices = cell_devices(device, spec["cell"]["chips"])
+    device = devices[0]
     cuda = device.type == "cuda"
-    if cuda and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
     if cuda:
         torch.cuda.set_device(device)
-    spans = Spans()
-    cell = entry(mix["entry"])(cfg, mix, seed, device, spans, control=control)
+    spans = Spans(devices)
+    cell = entry(mix["entry"])(cfg, mix, seed, device, spans, devices=devices,
+                               control=control)
     log(f"{workload}: n {cell.n}, m {cell.graph['m']}, n_r {cell.b['n_r']}, "
-        f"max_len {cell.b['max_len']}, seed {seed}")
+        f"max_len {cell.b['max_len']}, seed {seed}, on {[str(d) for d in devices]}")
     cell.warm()
+    synchronize(devices)
     if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.perf_counter() - t_start
 
     # -- the window --------------------------------------------------------
@@ -127,7 +154,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             undo = wrap(spans, name, target)
             if undo:
                 wrapped.append(undo)
-        prof = Profile(device)
+        prof = Profile(devices)
         prof.start()
     t0 = time.perf_counter()
     window_cm = spans.span("window", sync=True) if trace else None
@@ -143,11 +170,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                 undo()
         if time.perf_counter() - t0 >= seconds and (not trace or tr is not None):
             break
-    if cuda:
-        torch.cuda.synchronize()
+    synchronize(devices)
     elapsed = time.perf_counter() - t0
     counters = {k: v - c0.get(k, 0) for k, v in cell.counters().items()}
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peak = max(torch.cuda.max_memory_allocated(d) for d in devices) if cuda else 0
     units = len(cell.units)
     log(f"window: {units} units in {elapsed:.3f} s ({elapsed / units * 1e3:.1f} ms "
         f"a unit); setup {setup_s:.3f} s; counters {counters}")
@@ -164,7 +190,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         f"against the reference in {time.perf_counter() - t_check:.3f} s")
 
     # -- the result line -----------------------------------------------------
-    dev = dict(device_facts(device), memory_peak_bytes=int(peak))
+    dev = dict(device_facts(devices), memory_peak_bytes=int(peak))
     metrics = {}
     if not trace:
         ctx = dict(cell=cell, elapsed=elapsed, setup_s=setup_s)
@@ -184,6 +210,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         log(f"trace: {trace_units} units, {len(tr.kernels)} device intervals, "
             f"profiler stop {tr.exit_s:.3f} s")
+        for c, busy in tr.busy_by_card(lo, hi).items():
+            log(f"trace: card {c}: {tr.card.count(c)} device intervals, "
+                f"busy {busy} s of the window")
     out = dict(correct=correct, attempted=cell.attempted(),
                failed=cell.failed + missing, metrics=metrics, device=dev)
     if trace and tr.window:

@@ -2,7 +2,8 @@
 the least bytes of each push level (``roofline.push_level_bytes``: live
 edges, frontier in, frontier out) over the peak bandwidth, divided by the
 device time of every device interval launched inside a push call
-(profiler; the gather and ``index_add_`` today, whatever replaces them)."""
+(profiler; the ``spmm_csr`` kernel over each block's in-CSR today,
+whatever replaces it)."""
 
 from portbench.roofline import push_level_bytes, share_pct
 

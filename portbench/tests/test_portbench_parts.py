@@ -14,7 +14,8 @@ from portbench import check, roofline
 from portbench.graphgen import zipf_graph
 from portbench.deploy import budget, make_graph
 from portbench.reference import simrank as ref
-from portbench.tracing import Spans, Trace, breakdown, labelled_gaps
+from portbench.tracing import (Spans, Trace, breakdown, labelled_gaps, reduce_events,
+                                union_seconds)
 
 
 def graph(seed=7, n=400, m=3000, cap=25):
@@ -206,6 +207,72 @@ def test_readers_on_a_toy_trace():
 def test_readers_return_nothing_without_input(name):
     empty = Trace(window=(0, 1))
     assert read(name, ctx(trace=empty, counters={}, units=0)) is None
+
+
+MS = 1_000_000
+# card 0 busy 0-6 ms (6 ms), card 1 busy 1-3 ms (2 ms); the union is 0-6 ms
+ON_TWO = [(0, 4 * MS, "k", 0), (2 * MS, 6 * MS, "k", 0), (1 * MS, 3 * MS, "k", 0)]
+
+
+def test_busy_is_the_mean_over_the_cells_cards():
+    two = Trace(kernels=ON_TWO, card=[0, 0, 1], cards=(0, 1))
+    assert two.busy_by_card(0, 10 * MS) == {0: 6e-3, 1: 2e-3}
+    assert two.busy(0, 10 * MS) == pytest.approx(4e-3)
+    assert read("device_idle_pct", ctx(trace=two, window=(0, 10 * MS))) == pytest.approx(60)
+    # a card of the cell that ran nothing is idle all through
+    assert Trace(kernels=ON_TWO, card=[0, 0, 0], cards=(0, 1)).busy(0, 10 * MS) == 3e-3
+    # one card that holds them all: the union, as with no cards named
+    union = union_seconds([k[:2] for k in ON_TWO])
+    assert union == 6e-3
+    assert Trace(kernels=ON_TWO, card=[0, 0, 0], cards=(0,)).busy(0, 10 * MS) == union
+    assert Trace(kernels=ON_TWO).busy(0, 10 * MS) == union
+
+
+class Event:
+    """A raw profiler event as ``reduce_events`` reads it."""
+
+    def __init__(self, start, end, name, *, card=None, cid=0):
+        self.args = (start, end, name, card, cid)
+
+    def start_ns(self):
+        return self.args[0]
+
+    def duration_ns(self):
+        return self.args[1] - self.args[0]
+
+    def name(self):
+        return self.args[2]
+
+    def device_type(self):
+        cuda = self.args[3] is not None
+        return torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
+
+    def device_index(self):
+        return self.args[3]
+
+    def correlation_id(self):
+        return self.args[4]
+
+    def start_thread_id(self):
+        return 1
+
+    def is_user_annotation(self):
+        return self.args[2].startswith("portbench.")
+
+
+def test_reduce_events_keeps_each_intervals_card():
+    events = [Event(0, 10 * MS, "portbench.window"),
+              Event(0, 1, "cudaLaunchKernel", cid=7), Event(9, 10, "cudaLaunchKernel", cid=8)]
+    events += [Event(a, b, f"k{i}", card=c, cid=7 + i)
+               for i, ((a, b, *_), c) in enumerate(zip(ON_TWO, [0, 1, 1]))]
+    # the profiler also draws the host range on the device: not a device interval
+    events.append(Event(0, 10 * MS, "portbench.window", card=0))
+    tr = reduce_events(events, cards=(0, 1))
+    assert tr.window == (0, 10 * MS) and tr.cards == (0, 1)
+    assert [k[2] for k in tr.kernels] == ["k0", "k1", "k2"] and tr.card == [0, 1, 1]
+    assert [k[3] for k in tr.kernels] == [0, 9, 1 * MS]  # k2 has no launch: its start
+    assert tr.busy_by_card(0, 10 * MS) == {0: 4e-3, 1: 5e-3}
+    assert tr.busy(0, 10 * MS) == pytest.approx(4.5e-3)
 
 
 def test_idle_gaps_are_labelled_by_the_host():

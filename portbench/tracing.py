@@ -8,7 +8,8 @@ so the profiler's timeline carries it.  ``Profile`` runs
 and reduces its raw events to:
 
 * ``kernels``: device intervals (kernels, copies, sets) with name and the
-  host time of their launch, linked by correlation id;
+  host time of their launch, linked by correlation id, and beside them
+  ``card``, the card each ran on;
 * ``cpu``: host events (ops, runtime calls, the spans) per thread;
 * ``window``: the traced window, the span named ``window``.
 
@@ -25,13 +26,24 @@ from dataclasses import dataclass, field
 
 import torch
 
+
+def synchronize(devices) -> None:
+    """Wait until every CUDA card among ``devices`` has finished its work."""
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 class Spans:
     """Host spans of the benchmark: ``spans[name]`` is a list of
-    ``(start_ns, end_ns)``; ``annotate`` also marks them for the profiler."""
+    ``(start_ns, end_ns)``; ``annotate`` also marks them for the profiler.
+    A span taken with ``sync`` ends when every card of ``devices`` (the
+    cell's) has finished."""
 
-    def __init__(self):
+    def __init__(self, devices=()):
         self.spans: dict[str, list[tuple[int, int]]] = {}
         self.annotate = False
+        self.devices = list(devices)
 
     @contextlib.contextmanager
     def span(self, name: str, sync: bool = False):
@@ -40,8 +52,8 @@ class Spans:
         t0 = time.perf_counter_ns()
         with rf:
             yield
-            if sync and torch.cuda.is_available():
-                torch.cuda.synchronize()
+            if sync:
+                synchronize(self.devices)
         self.spans.setdefault(name, []).append((t0, time.perf_counter_ns()))
 
     def seconds(self, name: str) -> list[float]:
@@ -51,9 +63,11 @@ class Spans:
 @dataclass
 class Trace:
     kernels: list = field(default_factory=list)  # (start, end, name, launch_ns)
+    card: list = field(default_factory=list)  # the card of each entry of kernels
     cpu: list = field(default_factory=list)  # (start, end, name, thread)
     window: tuple[int, int] | None = None
     exit_s: float = 0.0  # time the profiler took to stop and hand over
+    cards: tuple[int, ...] = ()  # the cell's cards (CUDA device indices)
 
     def spans(self, name: str) -> list[tuple[int, int]]:
         """The profiler's intervals of benchmark span ``name``."""
@@ -61,8 +75,24 @@ class Trace:
         return [(a, b) for a, b, nm, _ in self.cpu if nm == full]
 
     def busy(self, lo: int, hi: int) -> float:
-        """Seconds of [lo, hi) in which some device interval ran."""
-        return union_seconds([(max(a, lo), min(b, hi)) for a, b, *_ in self.kernels
+        """Seconds of [lo, hi) in which the device ran something: on a cell
+        of several cards the mean over them of each card's own, so a card
+        that waits for the others shows idle; else the union of every
+        device interval."""
+        if len(self.cards) < 2:
+            return self._busy(lo, hi, self.kernels)
+        by_card = self.busy_by_card(lo, hi)
+        return sum(by_card.values()) / len(by_card)
+
+    def busy_by_card(self, lo: int, hi: int) -> dict[int, float]:
+        """Each of the cell's cards' busy seconds in [lo, hi)."""
+        return {c: self._busy(lo, hi, [k for k, on in zip(self.kernels, self.card)
+                                       if on == c])
+                for c in self.cards}
+
+    @staticmethod
+    def _busy(lo: int, hi: int, kernels) -> float:
+        return union_seconds([(max(a, lo), min(b, hi)) for a, b, *_ in kernels
                               if b > lo and a < hi])
 
 
@@ -90,12 +120,12 @@ def busy_intervals(kernels) -> list[tuple[int, int]]:
     return [tuple(x) for x in out]
 
 
-def reduce_events(events) -> Trace:
-    """Raw kineto events -> ``Trace`` (see the module doc).  Device events
-    are those on a CUDA device; a host event named ``cuda*`` / ``cu*`` (a
-    runtime or driver call) gives the launch time of the device event that
-    shares its correlation id."""
-    tr = Trace()
+def reduce_events(events, cards=()) -> Trace:
+    """Raw kineto events -> ``Trace`` (see the module doc) of a cell on
+    ``cards``.  Device events are those on a CUDA device; a host event
+    named ``cuda*`` / ``cu*`` (a runtime or driver call) gives the launch
+    time of the device event that shares its correlation id."""
+    tr = Trace(cards=tuple(cards))
     launch: dict[int, int] = {}
     device = []
     ranges = set()  # host ranges, which the profiler also draws on the device
@@ -103,15 +133,17 @@ def reduce_events(events) -> Trace:
     for ev in events:
         start, dur, name = ev.start_ns(), ev.duration_ns(), ev.name()
         if ev.device_type() == cuda:
-            device.append((start, start + dur, name, ev.correlation_id()))
+            device.append((start, start + dur, name, ev.correlation_id(),
+                           ev.device_index()))
             continue
         if name.startswith("cu"):
             launch[ev.correlation_id()] = start
         if name.startswith("portbench.") or getattr(ev, "is_user_annotation", bool)():
             ranges.add(name)
         tr.cpu.append((start, start + dur, name, ev.start_thread_id()))
-    tr.kernels = [(a, b, nm, launch.get(cid, a)) for a, b, nm, cid in device
-                  if nm not in ranges]
+    kept = [d for d in device if d[2] not in ranges]
+    tr.kernels = [(a, b, nm, launch.get(cid, a)) for a, b, nm, cid, _ in kept]
+    tr.card = [card for *_, card in kept]
     w = tr.spans("window")
     if w:
         tr.window = (min(a for a, _ in w), max(b for _, b in w))
@@ -119,12 +151,13 @@ def reduce_events(events) -> Trace:
 
 
 class Profile:
-    """``torch.profiler`` over part of a run; ``stop`` returns the
-    ``Trace``."""
+    """``torch.profiler`` over part of a run of a cell on ``devices``;
+    ``stop`` returns the ``Trace``."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, devices):
+        self.cards = [d.index for d in devices if d.type == "cuda"]
         acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
+        if self.cards:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         # one cycle, read once from the raw events: nothing for
         # ``acc_events`` to keep, and it would parse every event in Python
@@ -136,7 +169,7 @@ class Profile:
     def stop(self) -> Trace:
         t0 = time.perf_counter()
         self.prof.__exit__(None, None, None)
-        tr = reduce_events(self.prof.profiler.kineto_results.events())
+        tr = reduce_events(self.prof.profiler.kineto_results.events(), self.cards)
         tr.exit_s = time.perf_counter() - t0
         return tr
 
